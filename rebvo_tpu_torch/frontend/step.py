@@ -1,0 +1,549 @@
+"""The per-frame VO step, mono and vision-only (PyTorch counterpart of
+rebvo_tpu/frontend/step.py; reference SecondThread,
+src/rebvo/rebvo_second_t.cpp:128-623, plus FirstThr's detection stage,
+rebvo_first_t.cpp:259-272).
+
+    fe = VOFrontend(params, device="cuda")
+    state = fe.bootstrap(fe.init(), frame0, t0)
+    state, out = fe.step(state, frame, t)
+
+The step is a fixed sequence of tensor ops with no host synchronisation:
+no `.item()`, no Python branch on a device value, no `nonzero`, so it can
+later be captured as a CUDA graph. The state tensors are treated as
+immutable except the nav-log ring, which `step` appends to in place (the
+JAX package's donated step does the same with its buffers): do not step
+the same state twice and expect the old ring back.
+
+Each stage of `step` runs under a `record_function` span (`vo.front`,
+`vo.detect` inside it, `vo.pose`, `vo.match_depth`, `vo.keyframe`), so
+a `torch.profiler` trace splits the step's host and device time by
+stage; the rest of the step (pose composition, nav row) is outside any
+span.
+
+The visual-inertial step (ROADMAP M10) and stereo input (ROADMAP M11)
+are not ported yet and raise NotImplementedError.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple, Tuple
+
+import numpy as np
+import torch
+from torch.profiler import record_function
+
+from rebvo_tpu_torch.config import REBVOParameters
+from rebvo_tpu_torch.core.geometry import (CameraModel, rotate_gradients,
+                                           rotate_hom_points, so3_exp,
+                                           so3_log)
+from rebvo_tpu_torch.frontend.imu import ScaleWindows
+from rebvo_tpu_torch.frontend.kf_tracking import KFCarry, track_keyframe
+from rebvo_tpu_torch.frontend.state import (BIG, KeylineMap, NavData,
+                                            select_map)
+from rebvo_tpu_torch.kernels.depth_filter import (depth_ekf,
+                                                  estimate_quantile,
+                                                  estimate_rescaling_opt,
+                                                  regularize_1_iter)
+from rebvo_tpu_torch.kernels.edge_detect import (compact_keylines,
+                                                 detect_keylines,
+                                                 re_estimate_thresh,
+                                                 update_detector_threshold)
+from rebvo_tpu_torch.kernels.field import build_field
+from rebvo_tpu_torch.kernels.matching import (directed_matching,
+                                              directed_matching_field,
+                                              forward_match)
+from rebvo_tpu_torch.kernels.pose_solver import FieldView, minimizer_rv
+from rebvo_tpu_torch.kernels.scale_space import build_scale_space
+
+Tensor = torch.Tensor
+
+# Intensity scale of the float images (the reference's RGB-sum
+# convention: max_img_value = 255*3, rebvo.cpp:300).
+MAX_IMG_VALUE = 765.0
+
+
+class ImuCarry(NamedTuple):
+    """Visual-inertial filter state (the reference's IMUState,
+    rebvo.h:239-290). Carried unchanged by the mono step; the filter that
+    updates it is ROADMAP M10."""
+
+    init: Tensor        # bool — gyro-bias init complete
+    n_init: Tensor      # int32
+    giro_init: Tensor   # [3]
+    g_init: Tensor      # [3]
+    Bg: Tensor          # [3] gyro bias
+    W_Bg: Tensor        # [3,3]
+    Vg: Tensor          # [3]
+    X7: Tensor          # [7] scale/gravity/bias filter state
+    P7: Tensor          # [7,7]
+    u_est: Tensor       # [3]
+    g_est: Tensor       # [3]
+    b_est: Tensor       # [3]
+    windows: ScaleWindows
+    Posgv: Tensor       # [3]
+
+    @staticmethod
+    def make(params: REBVOParameters, dtype=torch.float32,
+             device="cuda") -> "ImuCarry":
+        p = params
+        kw = dict(dtype=dtype, device=device)
+        vb = p.VBiasStdDev ** 2 * 10
+        P7 = torch.diag(torch.tensor(
+            [p.ScaleStdDevInit ** 2, 100.0, 100.0, 100.0, vb, vb, vb], **kw))
+        X7 = torch.tensor([np.pi / 4, 0.0, p.g_module, 0.0, 0.0, 0.0, 0.0],
+                          **kw)
+        dtf = 1.0 / p.config_fps
+        W_Bg = torch.eye(3, **kw) / (p.GiroBiasStdDev ** 2 * dtf * dtf * 100.0)
+        z3 = torch.zeros((3,), **kw)
+        return ImuCarry(
+            init=torch.zeros((), dtype=torch.bool, device=device),
+            n_init=torch.zeros((), dtype=torch.int32, device=device),
+            giro_init=z3, g_init=z3.clone(), Bg=z3.clone(), W_Bg=W_Bg,
+            Vg=z3.clone(), X7=X7, P7=P7,
+            u_est=torch.tensor([1.0, 0.0, 0.0], **kw),
+            g_est=z3.clone(), b_est=z3.clone(),
+            windows=ScaleWindows.init(dtype, device), Posgv=z3.clone())
+
+
+# Packed nav-log row layout: one row appended per step to a device ring,
+# so the host fetches the whole run in one transfer. Padded to 64 lanes.
+NAVLOG_WIDTH = 64
+IMU_DBG_ROWS = ("giro", "acel", "cacel", "dgiro", "GBias", "dWv", "dWgv",
+                "VBias", "Av", "As", "Posgv")
+NAVLOG_FIELDS = (
+    ("t", 1), ("dt", 1), ("RotLie", 3), ("Vel", 3), ("PoseLie", 3),
+    ("Pos", 3), ("g", 3), ("scale", 1), ("ok", 1), ("kl_num", 1),
+    ("klm_num", 1), ("s_rho_q", 1), ("score", 1), ("stereo_num", 1),
+    ("kf_id", 1), ("kf_back_m", 1), ("kf_saved", 1),
+    ("Kp", 1), ("RKp", 1), ("imu_dbg", 3 * len(IMU_DBG_ROWS)),
+)
+
+
+class FrameOutput(NamedTuple):
+    nav: NavData
+    s_rho_q: Tensor
+    score: Tensor
+    rel_error: Tensor
+    stereo_num: Tensor     # stereo matches this frame (0 in mono)
+    kf_id: Tensor          # int32 active keyframe number (-1 = none)
+    kf_back_m: Tensor      # int32 frame->KF matches surviving the prune
+    kf_saved: Tensor       # bool — this frame was pushed as a keyframe
+    W_X: Tensor            # [6,6] pose-estimator information of [V; W]
+    Kp: Tensor             # per-frame rescaling ratio
+    RKp: Tensor            # its variance estimate
+    imu_dbg: Tensor        # [len(IMU_DBG_ROWS), 3] (zeros in mono)
+
+
+def pack_nav_row(out: FrameOutput) -> Tensor:
+    nav = out.nav
+    dt = nav.t.dtype
+
+    def s(a):
+        return a.to(dt).reshape(1)
+
+    parts = [
+        s(nav.t), s(nav.dt), nav.RotLie, nav.Vel, nav.PoseLie, nav.Pos,
+        nav.g, s(nav.scale), s(nav.estimation_ok), s(nav.kl_num),
+        s(nav.klm_num), s(out.s_rho_q), s(out.score), s(out.stereo_num),
+        s(out.kf_id), s(out.kf_back_m), s(out.kf_saved), s(out.Kp),
+        s(out.RKp), out.imu_dbg.reshape(-1),
+    ]
+    row = torch.cat(parts)
+    return torch.nn.functional.pad(row, (0, NAVLOG_WIDTH - row.shape[0]))
+
+
+def unpack_nav_rows(rows) -> list:
+    """Host-side: packed rows -> the RunLogger row-dict schema."""
+    out = []
+    for r in np.asarray(rows):
+        d = {}
+        o = 0
+        for name, w in NAVLOG_FIELDS:
+            d[name] = r[o] if w == 1 else np.asarray(r[o:o + w])
+            o += w
+        out.append(dict(
+            t=float(d["t"]), dt=float(d["dt"]), RotLie=d["RotLie"],
+            Vel=d["Vel"], PoseLie=d["PoseLie"], Pos=d["Pos"], g=d["g"],
+            scale=float(d["scale"]), ok=bool(d["ok"] > 0),
+            kl_num=int(d["kl_num"]), klm_num=int(d["klm_num"]),
+            s_rho_q=float(d["s_rho_q"]), score=float(d["score"]),
+            stereo_num=int(d["stereo_num"]), kf_id=int(d["kf_id"]),
+            kf_back_m=int(d["kf_back_m"]), kf_saved=bool(d["kf_saved"] > 0),
+            Kp=float(d["Kp"]), RKp=float(d["RKp"]),
+            imu_dbg=np.asarray(d["imu_dbg"]).reshape(len(IMU_DBG_ROWS), 3),
+        ))
+    return out
+
+
+class VOState(NamedTuple):
+    """Carry state between frames (one sequence); fields as in
+    rebvo_tpu/frontend/step.py VOState."""
+
+    klm: KeylineMap
+    mask_img: Tensor       # [H, W] previous map's detection id mask
+    field_img: Tensor      # [H, W] previous map's match field
+    thresh: Tensor         # detector auto-threshold
+    retuned: Tensor        # previous frame's re-tuned threshold
+    last_kl_num: Tensor
+    thresh_pair: Tensor    # stereo pair detector threshold (unused, mono)
+    last_kl_num_pair: Tensor
+    Vel: Tensor            # [3] warm-start translation
+    W0: Tensor             # [3] warm-start rotation
+    Kp: Tensor
+    P_Kp: Tensor
+    K_scale: Tensor        # global metric scale (1 for vision-only)
+    Pose: Tensor           # [3,3] global rotation
+    Pos: Tensor            # [3] global position
+    t: Tensor              # previous frame timestamp
+    frame_count: Tensor    # int32
+    imu: ImuCarry
+    kf: KFCarry
+    navlog: Tensor         # [NavLogCap, 64] device nav-log ring
+    navlog_n: Tensor       # int32 rows written (can exceed the cap)
+    G_gauge: Tensor        # cumulative rescaling ratio prod(Kp)
+    VScaleC: Tensor        # stereo velocity-scale integrator (1 in mono)
+    aR: Tensor             # [3,3] stereo scale-anchor epoch state
+    aV: Tensor
+    aAge: Tensor
+
+
+def init_state(params: REBVOParameters, dtype=torch.float32,
+               device="cuda") -> VOState:
+    K = params.KeylineMax
+    H, W = params.ImageHeight, params.ImageWidth
+    kw = dict(dtype=dtype, device=device)
+
+    def i32(v):
+        return torch.full((), v, dtype=torch.int32, device=device)
+
+    return VOState(
+        klm=KeylineMap.empty(K, dtype=dtype, device=device),
+        mask_img=torch.full((H, W), -1, dtype=torch.int32, device=device),
+        field_img=torch.full((H, W), -1, dtype=torch.int32, device=device),
+        thresh=torch.full((), params.DetectorThresh, **kw),
+        retuned=torch.zeros((), **kw),
+        last_kl_num=i32(0),
+        thresh_pair=torch.full((), params.DetectorThresh, **kw),
+        last_kl_num_pair=i32(0),
+        Vel=torch.zeros((3,), **kw),
+        W0=torch.zeros((3,), **kw),
+        Kp=torch.ones((), **kw),
+        P_Kp=torch.full((), 5e-6, **kw),
+        K_scale=torch.ones((), **kw),
+        Pose=torch.eye(3, **kw),
+        Pos=torch.zeros((3,), **kw),
+        t=torch.zeros((), **kw),
+        frame_count=i32(0),
+        imu=ImuCarry.make(params, dtype, device),
+        kf=KFCarry.empty(K if params.TrackKeyFrames else 1, dtype=dtype,
+                         device=device),
+        navlog=torch.zeros((max(params.NavLogCap, 1), NAVLOG_WIDTH), **kw),
+        navlog_n=i32(0),
+        G_gauge=torch.ones((), **kw),
+        VScaleC=torch.ones((), **kw),
+        aR=torch.eye(3, **kw),
+        aV=torch.zeros((3,), **kw),
+        aAge=i32(0),
+    )
+
+
+class VOFrontend:
+    """Binds the static configuration and the device; exposes the mono
+    step.
+
+        fe = VOFrontend(params)                # device="cuda"
+        state = fe.init()
+        state = fe.bootstrap(state, frame0, t0)   # detection only
+        state, out = fe.step(state, frame, t)     # vision-only
+
+    `UsePallas` keeps its meaning: non-zero runs the fused detector
+    (kernels/cuda_scale_space.py: the CUDA kernel on a CUDA device, its
+    plain version on the CPU), 0 the separate scale_space + edge_detect
+    ops."""
+
+    def __init__(self, params: REBVOParameters, cam: CameraModel = None,
+                 device="cuda"):
+        if params.StereoAvaiable:
+            raise NotImplementedError(
+                "stereo (StereoAvaiable=1) is not ported yet: ROADMAP M11")
+        self.params = params
+        self.device = torch.device(device)
+        self.cam = cam if cam is not None else CameraModel.from_params(params)
+        self.use_fused = params.UsePallas != 0
+        self.stereo = False
+
+    def init(self) -> VOState:
+        return init_state(self.params, device=self.device)
+
+    def _frame(self, frame) -> Tensor:
+        return torch.as_tensor(frame).to(
+            device=self.device, dtype=torch.float32).contiguous()
+
+    def _time(self, t, like: Tensor) -> Tensor:
+        if isinstance(t, Tensor):
+            return t.to(device=like.device, dtype=like.dtype)
+        return torch.full((), float(t), dtype=like.dtype, device=like.device)
+
+    # ------------------------------------------------------------------
+
+    def _detect_with(self, frame: Tensor, thresh0: Tensor,
+                     last_kl_num: Tensor, cam: CameraModel):
+        p = self.params
+        thresh = update_detector_threshold(
+            thresh0, last_kl_num, p.ReferencePoints, p.DetectorAutoGain,
+            p.DetectorMaxThresh, p.DetectorMinThresh)
+        if self.use_fused:
+            from rebvo_tpu_torch.kernels.cuda_scale_space import \
+                detect_candidates_cuda
+            cand = detect_candidates_cuda(
+                frame, thresh, sigma0=p.Sigma0, k_sigma=p.KSigma,
+                win_s=p.DetectorPlaneFitSize,
+                per_hist=p.DetectorPosNegThresh,
+                dog_thresh=p.DetectorDoGThresh,
+                max_img_value=MAX_IMG_VALUE)
+            klm, mask_img, kl_num = compact_keylines(
+                cand, K=p.KeylineMax, kl_max=p.MaxPoints, cx=cam.cx,
+                cy=cam.cy)
+        else:
+            ss = build_scale_space(frame, p.Sigma0, p.KSigma, 3)
+            klm, mask_img, kl_num = detect_keylines(
+                ss, thresh, K=p.KeylineMax, kl_max=p.MaxPoints,
+                win_s=p.DetectorPlaneFitSize,
+                per_hist=p.DetectorPosNegThresh,
+                dog_thresh=p.DetectorDoGThresh, max_img_value=MAX_IMG_VALUE,
+                cx=cam.cx, cy=cam.cy)
+        retuned = re_estimate_thresh(klm, p.TrackPoints, p.QCutOffNumBins)
+        return klm, mask_img, kl_num, thresh, retuned
+
+    def _detect(self, state: VOState, frame: Tensor):
+        return self._detect_with(frame, state.thresh, state.last_kl_num,
+                                 self.cam)
+
+    def bootstrap(self, state: VOState, frame, t,
+                  frame_pair=None) -> VOState:
+        """Process the first frame: detection only (the reference's dummy
+        first-frame consume, rebvo_second_t.cpp:108-122)."""
+        if frame_pair is not None:
+            raise NotImplementedError("stereo input: ROADMAP M11")
+        frame = self._frame(frame)
+        klm, mask_img, kl_num, thresh, retuned = self._detect(state, frame)
+        field_img = build_field(
+            klm, retuned,
+            radius=min(self.params.FieldRadius, self.params.SearchRange),
+            height=self.cam.height, width=self.cam.width)
+        return state._replace(
+            klm=klm, mask_img=mask_img, field_img=field_img, thresh=thresh,
+            retuned=retuned, last_kl_num=kl_num,
+            t=self._time(t, state.t), frame_count=state.frame_count + 1)
+
+    # ------------------------------------------------------------------
+
+    def _front(self, state: VOState, frame: Tensor):
+        """Detection + quantile + match field."""
+        p = self.params
+        cam = self.cam
+        with record_function("vo.detect"):
+            new_klm, new_mask, kl_num, thresh, retuned = self._detect(state,
+                                                                      frame)
+        s_rho_q = estimate_quantile(
+            state.klm, percentile=p.QCutOffQuantile, nbins=p.QCutOffNumBins)
+        field_img = build_field(
+            new_klm, retuned, radius=min(p.FieldRadius, p.SearchRange),
+            height=cam.height, width=cam.width)
+        fv = FieldView.from_map(field_img, new_klm)
+        return (new_klm, new_mask, kl_num, thresh, retuned, s_rho_q, fv,
+                field_img)
+
+    def _match(self, state: VOState, new_klm: KeylineMap, V, P_V, R):
+        p = self.params
+        cam = self.cam
+        kw = dict(zfm=cam.zfm, cx=cam.cx, cy=cam.cy, width=cam.width,
+                  height=cam.height, min_thr_mod=p.MatchThreshModule,
+                  min_thr_ang=p.MatchThreshAngle,
+                  max_radius=float(p.SearchRange),
+                  loc_uncertainty=p.LocationUncertaintyMatch)
+        if p.MatchFieldStride > 0:
+            stride = p.MatchFieldStride
+            return directed_matching_field(
+                new_klm, state.klm, state.field_img, V, P_V, R,
+                max_steps=int(p.SearchRange / stride) + 3, stride=stride,
+                **kw)
+        return directed_matching(new_klm, state.klm, state.mask_img, V, P_V,
+                                 R, max_steps=p.MatchMaxSteps, **kw)
+
+    def _tail(self, state: VOState, new_fm: KeylineMap, V, P_V, R,
+              nan_fail):
+        """Directed matching, depth filtering and the mono rescaling; the
+        caller has merged the forward rotation into state.klm."""
+        p = self.params
+        cam = self.cam
+        one = torch.ones((), dtype=V.dtype, device=V.device)
+
+        dres = self._match(state, new_fm, V, P_V, R)
+        klm_num = dres.nmatch
+        match_fail = klm_num < p.GlobalMatchThreshold
+        est_ok = (~nan_fail) & (~match_fail)
+
+        proc, _ = regularize_1_iter(dres.new, p.RegularizeThresh)
+        proc = depth_ekf(proc, V, cam.zfm, reshape_q_abs=p.ReshapeQAbsolute,
+                         loc_uncertainty=p.LocationUncertainty)
+        proc, Kp_new, P_Kp_new = estimate_rescaling_opt(proc, apply=False)
+        do_res = torch.full((), bool(p.DoReScaling), dtype=torch.bool,
+                            device=V.device)
+        if p.ImuMode > 0 and p.BootstrapRescaleFrames > 0:
+            boot = state.frame_count <= p.BootstrapRescaleFrames
+            moving = torch.abs(Kp_new - 1.0) > 0.05
+            apply_res = do_res | (boot & moving & est_ok)
+        else:
+            apply_res = do_res
+        div = torch.where(apply_res, Kp_new, one)
+        proc = proc._replace(rho=proc.rho / div, s_rho=proc.s_rho / div)
+
+        new_final = select_map(est_ok, proc, dres.new)
+        Kp = torch.where(est_ok, Kp_new, one)
+        # gauge bookkeeping skips frames whose creep the applied rescale
+        # already removed from the map
+        Kp_gauge = torch.where(apply_res, one, Kp)
+        P_Kp = torch.where(nan_fail, torch.full_like(P_Kp_new, BIG),
+                           torch.where(match_fail,
+                                       torch.full_like(P_Kp_new, 10.0),
+                                       P_Kp_new))
+        V_out = torch.where(est_ok, V, torch.zeros_like(V))
+        return new_final, klm_num, est_ok, Kp, Kp_gauge, P_Kp, V_out
+
+    # ------------------------------------------------------------------
+    # Vision-only path (rebvo_second_t.cpp:338-382 + common tail)
+    # ------------------------------------------------------------------
+
+    def step(self, state: VOState, frame, t,
+             frame_pair=None) -> Tuple[VOState, FrameOutput]:
+        if frame_pair is not None:
+            raise NotImplementedError("stereo input: ROADMAP M11")
+        p = self.params
+        cam = self.cam
+        dt_f = state.Vel.dtype
+        dev = state.Vel.device
+        frame = self._frame(frame)
+        t = self._time(t, state.t)
+        dt_frame = t - state.t
+        dt_frame = torch.where(dt_frame < 0.001,
+                               torch.full_like(dt_frame, 1.0 / p.config_fps),
+                               dt_frame)
+
+        with record_function("vo.front"):
+            (new_klm, new_mask, kl_num, thresh, retuned, s_rho_q, fv,
+             field_img) = self._front(state, frame)
+        old = state.klm
+
+        with record_function("vo.pose"):
+            match_num_min = torch.clamp(state.frame_count,
+                                        max=p.MatchNumThresh)
+            mres = minimizer_rv(
+                state.Vel, state.W0, old, fv, zfm=cam.zfm, cx=cam.cx,
+                cy=cam.cy, width=cam.width, height=cam.height,
+                match_thresh=p.TrackerMatchThresh, max_s_rho=s_rho_q,
+                match_num_min=match_num_min, k_huber=p.ReweigthDistance,
+                iter_max=p.TrackerIterNum, init_iter=p.TrackerInitIterNum,
+                init_type=p.TrackerInitType)
+
+            nan_fail = torch.any(~torch.isfinite(mres.Vel)) | \
+                torch.any(~torch.isfinite(mres.W0))
+            z3 = torch.zeros(3, dtype=dt_f, device=dev)
+            V = torch.where(nan_fail, z3, mres.Vel)
+            W = torch.where(nan_fail, z3, mres.W0)
+            P_V = torch.where(nan_fail,
+                              torch.eye(3, dtype=dt_f, device=dev) * BIG,
+                              mres.RVel)
+
+        with record_function("vo.match_depth"):
+            new_fm, _ = forward_match(old, new_klm, mres.m_id_f)
+            R0 = so3_exp(W)
+            R = R0.T
+            state2 = state._replace(klm=self._rotate_map(old, R0))
+            (new_final, klm_num, est_ok, Kp, Kp_gauge, P_Kp,
+             V_out) = self._tail(state2, new_fm, V, P_V, R, nan_fail)
+
+        K_scale = state.K_scale
+        Pose = state.Pose @ R
+        # gauge-consistent export (mono): multiply exported displacements
+        # by the cumulative rescaling ratio (see the JAX package)
+        if p.GaugeExport:
+            G_gauge = torch.clamp(state.G_gauge * Kp_gauge, 1e-4, 1e4)
+        else:
+            G_gauge = state.G_gauge
+        Pos = state.Pos - Pose @ (V_out * K_scale * G_gauge)
+
+        with record_function("vo.keyframe"):
+            (kf_carry, new_final, Pose, Pos, kf_id, kf_back_m,
+             kf_saved) = self._kf_track(state, new_final, fv, Pose, Pos,
+                                        K_scale, kl_num, s_rho_q, est_ok,
+                                        G_gauge)
+
+        nav = NavData(
+            t=t, dt=dt_frame, Rot=R, RotLie=so3_log(R),
+            Vel=-V_out * K_scale * G_gauge / dt_frame,
+            Pose=Pose, PoseLie=so3_log(Pose), Pos=Pos,
+            g=torch.zeros(3, dtype=dt_f, device=dev), scale=K_scale,
+            estimation_ok=est_ok, kl_num=kl_num, klm_num=klm_num)
+        W_X_out = torch.where(nan_fail,
+                              torch.eye(6, dtype=dt_f, device=dev) * 1e-12,
+                              mres.W_X)
+        out = FrameOutput(
+            nav=nav, s_rho_q=s_rho_q, score=mres.score,
+            rel_error=mres.rel_error,
+            stereo_num=torch.zeros((), dtype=torch.int32, device=dev),
+            kf_id=kf_id, kf_back_m=kf_back_m, kf_saved=kf_saved,
+            W_X=W_X_out, Kp=Kp, RKp=P_Kp,
+            imu_dbg=torch.zeros((len(IMU_DBG_ROWS), 3), dtype=dt_f,
+                                device=dev))
+        navlog, navlog_n = self._log_nav(state, out)
+        new_state = VOState(
+            klm=new_final, mask_img=new_mask, field_img=field_img,
+            thresh=thresh, retuned=retuned, last_kl_num=kl_num,
+            thresh_pair=state.thresh_pair,
+            last_kl_num_pair=state.last_kl_num_pair,
+            Vel=V_out, W0=W, Kp=Kp, P_Kp=P_Kp, K_scale=K_scale, Pose=Pose,
+            Pos=Pos, t=t, frame_count=state.frame_count + 1, imu=state.imu,
+            kf=kf_carry, navlog=navlog, navlog_n=navlog_n,
+            G_gauge=G_gauge, VScaleC=state.VScaleC,
+            aR=state.aR, aV=state.aV, aAge=state.aAge)
+        return new_state, out
+
+    def step_imu(self, *args, **kwargs):
+        raise NotImplementedError(
+            "the visual-inertial step is not ported yet: ROADMAP M10")
+
+    # ------------------------------------------------------------------
+
+    def _log_nav(self, state: VOState, out: FrameOutput):
+        """Append the packed nav row to the device ring (in place)."""
+        if self.params.NavLogCap <= 0:
+            return state.navlog, state.navlog_n
+        cap = state.navlog.shape[0]
+        row = pack_nav_row(out)
+        idx = (state.navlog_n % cap).to(torch.int64).reshape(1)
+        state.navlog.index_copy_(0, idx, row[None])
+        return state.navlog, state.navlog_n + 1
+
+    def _kf_track(self, state: VOState, klm: KeylineMap, fv, Pose, Pos,
+                  K_scale, kl_num, s_rho_q, est_ok, G_gauge):
+        """Online keyframe tracking (TrackKeyFrames, statically gated)."""
+        dev = Pose.device
+        if not self.params.TrackKeyFrames:
+            return (state.kf, klm, Pose, Pos,
+                    torch.full((), -1, dtype=torch.int32, device=dev),
+                    torch.zeros((), dtype=torch.int32, device=dev),
+                    torch.zeros((), dtype=torch.bool, device=dev))
+        res = track_keyframe(
+            state.kf, klm, fv, Pose, Pos, K_scale, kl_num, s_rho_q, est_ok,
+            G_gauge, cam=self.cam, params=self.params)
+        return (res.kf, res.klm, res.Pose, res.Pos, res.kf.count - 1,
+                res.back_m, res.saved)
+
+    def _rotate_map(self, klm: KeylineMap, R0: Tensor) -> KeylineMap:
+        """Forward-rotate an edge map (edge_tracker::rotate_keylines)."""
+        px, py, rho, s_rho = rotate_hom_points(
+            R0, klm.px, klm.py, klm.rho, klm.s_rho, self.cam.zfm)
+        gx, gy = rotate_gradients(R0, klm.gx, klm.gy)
+        return klm._replace(px=px, py=py, rho=rho, s_rho=s_rho,
+                            gx=gx, gy=gy)

@@ -1,0 +1,64 @@
+"""The PyTorch port stands alone: it imports neither JAX nor rebvo_tpu.
+
+tests/conftest.py imports JAX into the test process, so the run happens
+in a fresh interpreter.
+"""
+
+import os
+import re
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+
+ROOT = Path(__file__).resolve().parents[1]
+PKG = ROOT / "rebvo_tpu_torch"
+
+_SCRIPT = r"""
+import sys
+import numpy as np
+import rebvo_tpu_torch
+from rebvo_tpu_torch.config import REBVOParameters
+from rebvo_tpu_torch.frontend.step import VOFrontend
+from rebvo_tpu_torch.io.render import synth_frames
+import rebvo_tpu_torch.apps.run_vo, rebvo_tpu_torch.convert
+import rebvo_tpu_torch.kernels.cuda_scale_space, rebvo_tpu_torch.backend.kfvo
+p = REBVOParameters().replace(ImageWidth=96, ImageHeight=64, PPx=48.0,
+                              PPy=32.0, KeylineMax=512, NavLogCap=8)
+fr = synth_frames(p, 2)
+fe = VOFrontend(p, device="cpu")
+st = fe.bootstrap(fe.init(), fr[0], 0.0)
+st, out = fe.step(st, fr[1], 0.05)
+assert np.all(np.isfinite(out.nav.Pos.numpy()))
+assert int(st.last_kl_num) > 0
+bad = sorted(m for m in sys.modules
+             if m == "jax" or m.startswith(("jax.", "jaxlib"))
+             or m == "rebvo_tpu" or m.startswith("rebvo_tpu."))
+print("LEAKED", bad)
+sys.exit(1 if bad else 0)
+"""
+
+
+def test_port_runs_without_jax_or_rebvo_tpu():
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    r = subprocess.run([sys.executable, "-c", _SCRIPT], cwd=str(ROOT),
+                       env=env, capture_output=True, text=True, timeout=300)
+    assert r.returncode == 0, r.stdout + r.stderr
+    assert "LEAKED []" in r.stdout
+
+
+_FORBIDDEN = re.compile(
+    r"^\s*(import\s+(jax|jaxlib|rebvo_tpu)\b"
+    r"|from\s+(jax|jaxlib|rebvo_tpu)(\.|\s+import\b))", re.M)
+
+
+@pytest.mark.parametrize("path", sorted(
+    str(p.relative_to(ROOT)) for p in PKG.rglob("*.py")) +
+    ["chip_smoke.py"])
+def test_source_imports_no_jax(path):
+    """No module of the port (nor chip_smoke.py) imports jax, jaxlib or
+    rebvo_tpu, even lazily inside a function."""
+    src = (ROOT / path).read_text()
+    hits = [m.group(0).strip() for m in _FORBIDDEN.finditer(src)]
+    assert not hits, hits
