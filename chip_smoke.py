@@ -4,26 +4,38 @@
 
 Phases, each printing one JSON line; any failure exits non-zero:
   1. device   — the card's name, and its power limit from nvidia-smi;
-  2. build    — every kernel of the main path built by nvcc from csrc/;
+  2. build    — every kernel in csrc/ built by nvcc, all at once;
   3. K1 check — the detector kernel against its plain PyTorch version on
                 the card at 480x752 (a rendered and a uniform frame, two
                 thresholds, a [4,480,752] batch), with their times and the
                 card's bound;
+  3b. K2 check — the scale-space kernel likewise (the same three inputs),
+                and the prefix-sum twin's time and difference;
   4. main     — the default-config mono path (752x480, KeylineMax=16384)
                 over 60 rendered frames, every step after the first under
                 torch.cuda.set_sync_debug_mode("error");
   5. profile  — 6 more steps under torch.profiler: host and device ms per
                 step by stage span, device launches per step, the top
                 PyTorch ops by device time;
+  4b. scan    — from the state after phase 4, 16 frames through the
+                per-frame step against step_scan's CUDA graphs with N=8
+                and N=2, replayed under set_sync_debug_mode("error");
   6. run_vo   — the run_vo entry point end to end on the card;
+  6b. chunk   — run_vo --chunk 8 against phase 6's trajectory;
   7. cpu      — the first 8 frames of phase 4 on the CPU against the card;
-  8. kernels  — the kernel list.
-Then the nvidia-smi line, and last {"ok": true, "device": {...}}.
-Longer artefacts go to chiprun_out/smoke/.
+  8. bench    — python -m rebvo_tpu_torch.bench, in this process (its
+                JSON line is printed as it is);
+  9. kernels  — the kernel list.
+Each path (phases 4, 4b, 6, 6b, 8) starts with every kernel's launch
+count at 0 and reports the counts it ends with. Then the nvidia-smi line,
+and last {"ok": true, "device": {...}}. Longer artefacts go to
+chiprun_out/smoke/.
 """
 
 from __future__ import annotations
 
+import contextlib
+import io
 import json
 import os
 import statistics
@@ -40,23 +52,48 @@ from rebvo_tpu_torch.frontend.step import VOFrontend
 from rebvo_tpu_torch.io.render import render_lateral
 from rebvo_tpu_torch.kernels import cuda_build
 from rebvo_tpu_torch.kernels import cuda_scale_space as cs
-from rebvo_tpu_torch.kernels.scale_space import scale_space_plan
+from rebvo_tpu_torch.kernels.scale_space import (build_scale_space,
+                                                 scale_space_plan)
+# published peaks of one H100 against which every bound here is stated
+from rebvo_tpu_torch.profiling import H100_F32_FLOPS, H100_MEM_BYTES_PER_S
 
 OUT = os.path.join("chiprun_out", "smoke")
 N_FRAMES = 60
 N_PROFILE = 6
+N_SCAN = 16
 N_CPU = 8
 KL_FLOOR = 2000          # keylines a textured 752x480 frame must give
-
-# Published peaks of one H100 (NVIDIA's data sheet, SXM part, full
-# power), against which every bound here is stated: memory bytes/s and
-# float32 FLOP/s outside the tensor cores.
-H100_MEM_BYTES_PER_S = 3.35e12
-H100_F32_FLOPS = 67e12
+SS_MAPS = ("img0", "img1", "dog", "dx", "dy")
 
 
 def emit(obj):
-    print(json.dumps(obj), flush=True)
+    line = json.dumps(obj)
+    print(line, flush=True)
+    with open(os.path.join(OUT, "lines.jsonl"), "a") as fh:
+        fh.write(line + "\n")
+
+
+def zero_launches():
+    for fn in cs.WRAPPERS:
+        fn.launches = 0
+
+
+def read_launches():
+    return {fn.__name__: fn.launches for fn in cs.WRAPPERS}
+
+
+def clone_tree(tree):
+    if isinstance(tree, torch.Tensor):
+        return tree.clone()
+    return type(tree)(*[clone_tree(sub) for sub in tree])
+
+
+def pos_tolerance(pos):
+    """Phase 7's bar between two runs of one sequence: 2% of the path
+    length (end-to-start plus start-from-origin) plus 1e-4."""
+    path = float(np.linalg.norm(pos[-1] - pos[0])) + \
+        float(np.linalg.norm(pos[0]))
+    return 0.02 * path + 1e-4
 
 
 def time_cuda(fn, n=100, flush=None):
@@ -128,9 +165,21 @@ def device_ms(fn, n, flush):
     return statistics.median(per_call) / 1e3
 
 
+def box_ops_per_pixel(sizes0, sizes1):
+    """Float operations of both box chains per pixel: per pass of width
+    d, d-1 adds each way and two multiplies by the reciprocals."""
+    return sum(2 * (d - 1) + 2 for d in list(sizes0) + list(sizes1)
+               if d > 1)
+
+
+def k2_ops_per_pixel(sizes0, sizes1):
+    """Float operations K2 does per pixel: the chains, the DoG, dx, dy."""
+    return box_ops_per_pixel(sizes0, sizes1) + 1 + 2
+
+
 def k1_ops_per_pixel(sizes0, sizes1, w):
     """Float operations K1 does per pixel, counted from its passes."""
-    box = sum(2 * (d - 1) + 2 for d in list(sizes0) + list(sizes1) if d > 1)
+    box = box_ops_per_pixel(sizes0, sizes1)
     dog, grad_t1, sign = 1, 6, 1
     pn = 4 * w + 2                       # sign window sum + |.| <= limit
     sums = 2 * w + 4 * w + 4 * w         # Vs, Vw, Hw of the DoG
@@ -199,6 +248,7 @@ def main():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
     os.makedirs(OUT, exist_ok=True)
+    open(os.path.join(OUT, "lines.jsonl"), "w").close()
     dev = torch.device("cuda")
 
     # ---- 1. device ------------------------------------------------------
@@ -233,14 +283,15 @@ def main():
               win_s=p.DetectorPlaneFitSize, per_hist=p.DetectorPosNegThresh,
               dog_thresh=p.DetectorDoGThresh, max_img_value=765.0)
     H, W = p.ImageHeight, p.ImageWidth
-    frames = render_lateral(p, N_FRAMES + N_PROFILE)  # [N, 480, 752]
+    frames = render_lateral(p, N_FRAMES + N_SCAN)      # [N, 480, 752]
     rng = np.random.default_rng(0)
     uniform = rng.uniform(0, 765, (H, W)).astype(np.float32)
     batch = rng.uniform(0, 765, (4, H, W)).astype(np.float32)
+    inputs = (("rendered", frames[5]), ("uniform", uniform),
+              ("batch4", batch))
     cases = []
     worst_err, worst_mism = 0.0, 0
-    for label, img in (("rendered", frames[5]), ("uniform", uniform),
-                       ("batch4", batch)):
+    for label, img in inputs:
         x = torch.as_tensor(img, device=dev)
         for th in (0.03, p.DetectorThresh):
             tht = torch.full((), th, dtype=torch.float32, device=dev)
@@ -296,15 +347,70 @@ def main():
                     "torch.profiler), L2 flushed; call_ms: CUDA events"})
     if not ok3:
         return 1
+
+    # ---- 3b. K2 against its plain version ---------------------------------
+    # Bar: 5e-3 on every map (tests/test_pallas.py's Pallas-vs-XLA bar);
+    # kernel and plain version round alike, so 0.0 is expected.
+    ss_cases, worst2 = [], 0.0
+    for label, img in inputs:
+        xi = torch.as_tensor(img, device=dev)
+        a = cs.build_scale_space_cuda(xi, p.Sigma0, p.KSigma)
+        b = cs.build_scale_space_plain(xi, p.Sigma0, p.KSigma)
+        torch.cuda.synchronize()
+        errs = {m: float((getattr(a, m) - getattr(b, m)).abs().max())
+                for m in SS_MAPS}
+        ss_cases.append({"frame": label, "max_abs_err": errs})
+        worst2 = max(worst2, *errs.values())
+    ok3b = worst2 < 5e-3
+
+    def run_k2():
+        cs.build_scale_space_cuda(x, p.Sigma0, p.KSigma)
+
+    def run_p2():
+        cs.build_scale_space_plain(x, p.Sigma0, p.KSigma)
+
+    def run_t2():
+        build_scale_space(x, p.Sigma0, p.KSigma)
+
+    plain2_a = device_ms(run_p2, 50, flush)
+    k2_a = device_ms(run_k2, 200, flush)
+    k2_b = device_ms(run_k2, 200, flush)
+    plain2_b = device_ms(run_p2, 50, flush)
+    twin_ms = device_ms(run_t2, 50, flush)
+    kernel2_ms = statistics.median([k2_a, k2_b])
+    plain2_ms = statistics.median([plain2_a, plain2_b])
+    call2_ms = time_cuda(run_k2, 200, flush)
+    plain2_call_ms = time_cuda(run_p2, 100, flush)
+    # the prefix-sum twin's row sums reach ~3e6 at 480x752 (f32 ulp 0.25),
+    # so it differs from K2 by far more than K2's bar: a measured number
+    k2_out = cs.build_scale_space_cuda(x, p.Sigma0, p.KSigma)
+    twin = build_scale_space(x, p.Sigma0, p.KSigma)
+    twin_err = {m: float((getattr(k2_out, m) - getattr(twin, m)).abs().max())
+                for m in SS_MAPS}
+    bytes2 = px * (4 + 5 * 4)                 # frame in; 5 maps out
+    ops2 = px * k2_ops_per_pixel(sizes0, sizes1)
+    t2_bytes, t2_ops = bytes2 / bw * 1e3, ops2 / flops * 1e3
+    bound2_ms = max(t2_bytes, t2_ops)
+    bound2_by = "bytes" if t2_bytes >= t2_ops else "operations"
+    emit({"phase": "k2_check", "ok": ok3b, "cases": ss_cases,
+          "kernel_ms": kernel2_ms, "kernel_ms_runs": [k2_a, k2_b],
+          "plain_ms": plain2_ms, "plain_ms_runs": [plain2_a, plain2_b],
+          "call_ms": call2_ms, "plain_call_ms": plain2_call_ms,
+          "torch_twin_ms": twin_ms, "torch_twin_max_abs_diff": twin_err,
+          "bytes": bytes2, "ops": ops2, "bound_ms": bound2_ms,
+          "bound_by": bound2_by, "library_ms": None,
+          "timing": "as k1_check"})
+    if not ok3b:
+        return 1
     del l2
 
     # ---- 4. main path at full width -----------------------------------
     fe = VOFrontend(p, device="cuda")
     gpu_frames = torch.as_tensor(frames, device=dev)
-    ts = [i / p.config_fps for i in range(N_FRAMES + N_PROFILE)]
+    ts = [i / p.config_fps for i in range(N_FRAMES + N_SCAN)]
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    cs.detect_candidates_cuda.launches = 0
+    zero_launches()
     state = fe.bootstrap(fe.init(), gpu_frames[0], ts[0])
     outs, step_ms = [], []
     for i in range(1, N_FRAMES):
@@ -318,7 +424,8 @@ def main():
         torch.cuda.synchronize()
         step_ms.append((time.perf_counter() - t0) * 1e3)
         outs.append(out)
-    launches = cs.detect_candidates_cuda.launches
+    main_launches = read_launches()
+    launches = main_launches["detect_candidates_cuda"]
     peak_mb = torch.cuda.max_memory_allocated() / 2 ** 20
     pos = np.stack([o.nav.Pos.cpu().numpy() for o in outs])
     kl = [int(o.nav.kl_num) for o in outs]
@@ -331,7 +438,8 @@ def main():
     np.savez(os.path.join(OUT, "main_path.npz"), pos=pos, kl=kl, klm=klm,
              est=est, step_ms=step_ms)
     emit({"phase": "main_path", "ok": ok4, "frames": N_FRAMES,
-          "k1_launches": launches, "kl_min": min(kl), "kl_floor": KL_FLOOR,
+          "launches": main_launches, "kl_min": min(kl),
+          "kl_floor": KL_FLOOR,
           "klm_min": min(klm), "est_ok_share_after_2": est_share,
           "pos_finite": bool(np.all(np.isfinite(pos))),
           "ms_per_frame_median": statistics.median(steady),
@@ -340,29 +448,111 @@ def main():
           "peak_device_mb": peak_mb, "card": smi})
     if not ok4:
         return 1
+    state4 = clone_tree(state)
 
     # ---- 5. where the step's time goes -------------------------------
-    state, prof = profile_steps(fe, state, gpu_frames[N_FRAMES:],
-                                ts[N_FRAMES:])
+    _, prof = profile_steps(fe, state, gpu_frames[N_FRAMES:N_FRAMES +
+                                                  N_PROFILE],
+                            ts[N_FRAMES:N_FRAMES + N_PROFILE])
     busy = prof["device_busy_ms_per_step"]
     emit({"phase": "profile", **prof,
           "device_idle_share": 1.0 - busy / statistics.median(steady),
           "idle_share_of": "median unprofiled ms/frame of phase 4",
           "card": smi})
 
+    # ---- 4b. step_scan's CUDA graphs against the per-frame step ----------
+    sc_f = gpu_frames[N_FRAMES:N_FRAMES + N_SCAN]
+    sc_t = torch.tensor(ts[N_FRAMES:N_FRAMES + N_SCAN], dtype=torch.float32,
+                        device=dev)
+    st = clone_tree(state4)
+    ref = []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(N_SCAN):
+        st, out = fe.step(st, sc_f[i], sc_t[i])
+        ref.append(out)
+    torch.cuda.synchronize()
+    pf_ms = (time.perf_counter() - t0) * 1e3 / N_SCAN
+    ref_pos = np.stack([o.nav.Pos.cpu().numpy() for o in ref])
+    ref_kl = [int(o.nav.kl_num) for o in ref]
+    tol4b = pos_tolerance(ref_pos)
+    torch.cuda.reset_peak_memory_stats()
+    scan, ok4b = {}, True
+    for n in (8, 2):
+        fe.step_scan(clone_tree(state4), sc_f[:n], sc_t[:n])   # capture
+        st = clone_tree(state4)
+        torch.cuda.synchronize()
+        zero_launches()
+        souts = []
+        t0 = time.perf_counter()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            for c in range(N_SCAN // n):
+                st, o = fe.step_scan(st, sc_f[c * n:(c + 1) * n],
+                                     sc_t[c * n:(c + 1) * n])
+                souts.append(o)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3 / N_SCAN
+        got = read_launches()
+        spos = torch.cat([o.nav.Pos for o in souts]).cpu().numpy()
+        skl = torch.cat([o.nav.kl_num for o in souts]).cpu().tolist()
+        dpos = float(np.abs(spos - ref_pos).max())
+        k1_per = got["detect_candidates_cuda"] / (N_SCAN // n)
+        ok_n = skl == ref_kl and dpos <= tol4b and k1_per == n
+        ok4b = ok4b and ok_n
+        scan[f"n{n}"] = {"ok": ok_n, "replays": N_SCAN // n,
+                         "ms_per_frame": ms, "kl_equal": skl == ref_kl,
+                         "max_abs_pos_diff": dpos, "launches": got,
+                         "k1_launches_per_replay": k1_per}
+    peak_graph_mb = torch.cuda.max_memory_allocated() / 2 ** 20
+    # one N=8 replay under torch.profiler: the device's busy time per
+    # frame inside the graph, and so its idle share on the graph path
+    st, _ = fe.step_scan(clone_tree(state4), sc_f[:8], sc_t[:8])
+    _, acts = _device_timeline(_profiled(
+        lambda: fe.step_scan(st, sc_f[8:], sc_t[8:])))
+    busy8 = sum(a[1] - a[0] for a in acts) / 1e3 / 8
+    replay = {"device_activities_per_frame": len(acts) / 8,
+              "device_busy_ms_per_frame": busy8 if acts else None,
+              "device_idle_share": (1.0 - busy8 / scan["n8"]["ms_per_frame"]
+                                    if acts else None)}
+    emit({"phase": "scan", "ok": ok4b, "frames": N_SCAN,
+          "per_frame_ms": pf_ms, **scan, "tolerance": tol4b,
+          "peak_device_mb_with_graphs": peak_graph_mb,
+          "replay_profile_n8": replay,
+          "timing": "host clock around the 16 frames + synchronize; "
+                    "idle share against n8's unprofiled ms_per_frame",
+          "card": smi})
+    if not ok4b:
+        return 1
+
     # ---- 6. run_vo entry point ----------------------------------------
     from rebvo_tpu_torch.apps import run_vo
-    rv_dir = os.path.join(OUT, "run_vo")
-    run_vo.main(["--render", "40", "--max-frames", "40", "--out-dir",
-                 rv_dir])
-    with open(os.path.join(rv_dir, p.TrayFile)) as fh:
-        rows = [ln for ln in fh if ln.strip()]
-    tum = np.loadtxt(os.path.join(rv_dir, p.TrayFile))
-    ok5 = len(rows) == 39 and bool(np.all(np.isfinite(tum)))
-    emit({"phase": "run_vo", "ok": ok5, "tum_rows": len(rows),
-          "expected_rows": 39})
-    if not ok5:
-        return 1
+    tum = {}
+    for label, extra in (("run_vo", []), ("run_vo_chunk", ["--chunk", "8"])):
+        zero_launches()
+        rv_dir = os.path.join(OUT, label)
+        run_vo.main(["--render", "40", "--max-frames", "40", "--out-dir",
+                     rv_dir] + extra)
+        got = read_launches()
+        with open(os.path.join(rv_dir, p.TrayFile)) as fh:
+            rows = [ln for ln in fh if ln.strip()]
+        tum[label] = np.loadtxt(os.path.join(rv_dir, p.TrayFile))
+        ok5 = (len(rows) == 39 and bool(np.all(np.isfinite(tum[label])))
+               and got["detect_candidates_cuda"] > 0)
+        line = {"phase": label, "ok": ok5, "tum_rows": len(rows),
+                "expected_rows": 39, "launches": got}
+        if extra:
+            # 6b: the chunked run against the per-frame one (phase 7's bar)
+            ppos, cpos = tum["run_vo"][:, 1:4], tum[label][:, 1:4]
+            tol = pos_tolerance(ppos)
+            dpos = float(np.abs(cpos - ppos).max())
+            ok5 = ok5 and dpos <= tol
+            line.update(ok=ok5, max_abs_pos_diff=dpos, tolerance=tol)
+        emit(line)
+        if not ok5:
+            return 1
 
     # ---- 7. the same frames on the CPU --------------------------------
     # Tolerance: kl_num equal (the kernel and the plain version give the
@@ -378,9 +568,7 @@ def main():
         cpu_pos.append(out.nav.Pos.numpy())
         cpu_kl.append(int(out.nav.kl_num))
     cpu_pos = np.stack(cpu_pos)
-    path = float(np.linalg.norm(cpu_pos[-1] - cpu_pos[0])) + \
-        float(np.linalg.norm(cpu_pos[0]))
-    tol = 0.02 * path + 1e-4
+    tol = pos_tolerance(cpu_pos)
     dpos = float(np.abs(cpu_pos - pos[:N_CPU - 1]).max())
     ok6 = cpu_kl == kl[:N_CPU - 1] and dpos <= tol
     emit({"phase": "cpu_vs_card", "ok": ok6, "frames": N_CPU,
@@ -389,7 +577,25 @@ def main():
     if not ok6:
         return 1
 
-    # ---- 8. kernel list -----------------------------------------------
+    # ---- 8. the bench, in this process ----------------------------------
+    from rebvo_tpu_torch import bench
+    zero_launches()
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = bench.main()
+    bench_launches = read_launches()
+    bench_line = buf.getvalue().strip().splitlines()[-1]
+    print(bench_line, flush=True)
+    with open(os.path.join(OUT, "bench.json"), "w") as fh:
+        fh.write(bench_line + "\n")
+    fps = json.loads(bench_line)["value"]
+    ok8 = (rc == 0 and bench_launches["build_scale_space_cuda"] > 0
+           and np.isfinite(fps) and fps > 0)
+    emit({"phase": "bench", "ok": ok8, "rc": rc, "launches": bench_launches})
+    if not ok8:
+        return 1
+
+    # ---- 9. kernel list -----------------------------------------------
     emit({"kernels": [{
         "name": "detect_candidates", "route": "cuda",
         "source": "rebvo_tpu_torch/csrc/detect_candidates.cu",
@@ -399,7 +605,23 @@ def main():
         "max_abs_err": worst_err, "ms": kernel_ms, "kernel_ms": kernel_ms,
         "call_ms": call_ms,
         "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
-        "library_ms": None}]})
+        "library_ms": None,
+        "launches_by_path": {
+            "main_path": launches,
+            "scan_n8": scan["n8"]["launches"]["detect_candidates_cuda"],
+            "scan_n2": scan["n2"]["launches"]["detect_candidates_cuda"],
+            "bench": bench_launches["detect_candidates_cuda"]}}, {
+        "name": "build_scale_space", "route": "cuda",
+        "source": "rebvo_tpu_torch/csrc/build_scale_space.cu",
+        "replaces": "rebvo_tpu/kernels/pallas_scale_space.py:276",
+        "replaces_function": "build_scale_space_pallas (_sspace_kernel)",
+        "launches": bench_launches["build_scale_space_cuda"],
+        "max_abs_err": worst2, "ms": kernel2_ms, "kernel_ms": kernel2_ms,
+        "call_ms": call2_ms, "plain_ms": plain2_ms, "bound_ms": bound2_ms,
+        "bound_by": bound2_by, "library_ms": None,
+        "launches_by_path": {
+            "main_path": main_launches["build_scale_space_cuda"],
+            "bench": bench_launches["build_scale_space_cuda"]}}]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,
                                  "count": torch.cuda.device_count()}})

@@ -11,6 +11,9 @@ Examples:
     # procedural frames on the CPU
     python -m rebvo_tpu_torch.apps.run_vo --synthetic 40 --cpu
 
+    # 8 frames per call: on the card, one replay of a captured CUDA graph
+    python -m rebvo_tpu_torch.apps.run_vo --render 60 --chunk 8
+
 Rendered and synthetic frames come from an ideal pinhole camera, so no
 undistortion is applied to them. Dataset input and the other modes of
 the JAX package's run_vo are not ported yet; their flags fail with the
@@ -27,7 +30,6 @@ _NOT_PORTED = {
     "euroc": "EuRoC input (io/dataset): ROADMAP queue 1, after M10",
     "imu": "visual-inertial mode: ROADMAP M10",
     "stereo": "stereo mode: ROADMAP M11",
-    "chunk": "the chunked CUDA-graph step: ROADMAP M8b",
     "kf_every": "the keyframe store (backend/keyframe): ROADMAP M14",
     "save_video": "video saving (io/video): ROADMAP M13",
     "interactive": "the interactive command loop: ROADMAP M13",
@@ -48,7 +50,8 @@ def main(argv=None):
     ap.add_argument("--euroc")
     ap.add_argument("--imu", action="store_true")
     ap.add_argument("--stereo", action="store_true")
-    ap.add_argument("--chunk", type=int, default=0)
+    ap.add_argument("--chunk", type=int, default=0,
+                    help="step N frames per call (VOFrontend.step_scan)")
     ap.add_argument("--kf-every", type=int, default=0)
     ap.add_argument("--save-video")
     ap.add_argument("--interactive", action="store_true")
@@ -62,6 +65,7 @@ def main(argv=None):
         ap.error("give --synthetic N or --render N (dataset input is not "
                  f"ported yet: {_NOT_PORTED['euroc']})")
 
+    import numpy as np
     import torch
 
     from rebvo_tpu_torch.config import REBVOParameters, load_config
@@ -91,15 +95,28 @@ def main(argv=None):
 
     fe = VOFrontend(params, device=device)
     state = fe.init()
+    chunk = []          # frame indices waiting for one step_scan call
     t_start = time.perf_counter()
     for i in range(n):
         t = i / params.config_fps
         if i == 0:
             state = fe.bootstrap(state, frames[i], t)
+        elif args.chunk > 1:
+            chunk.append(i)
+            if len(chunk) == args.chunk:
+                state, _ = fe.step_scan(
+                    state, np.stack([frames[j] for j in chunk]),
+                    np.asarray([j / params.config_fps for j in chunk],
+                               np.float32))
+                chunk.clear()
         else:
-            state, _ = fe.step(state, frames[i], t)
+            # donated step: the previous state's buffers are reused
+            state, _ = fe.step_donated(state, frames[i], t)
         if (i + 1) % 50 == 0:
             print(f"frame {i + 1}", flush=True)
+    # the partial tail chunk, one frame at a time
+    for j in chunk:
+        state, _ = fe.step_donated(state, frames[j], j / params.config_fps)
     if device == "cuda":
         torch.cuda.synchronize()
     wall = time.perf_counter() - t_start

@@ -34,7 +34,12 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "scale_space_tile.cuh"
+
 namespace {
+
+using sstile::box_pass;
+using sstile::inside;
 
 constexpr int TILE = 32;
 constexpr int MAX_HALO = 8;
@@ -57,53 +62,6 @@ struct DetectParams {
   float sum_j2;         // (2w+1) * sum_j j^2
   float win_area;       // (2w+1)^2
 };
-
-__device__ __forceinline__ bool inside(int gy, int gx, const DetectParams& p) {
-  return gy >= 0 && gy < p.H && gx >= 0 && gx < p.W;
-}
-
-// One clipped, normalised box pass of odd width d over the tile in `a`,
-// using `tmp` for the vertical sums. Tile cells outside the image stay 0
-// before and after, which is the clipping of the reference's zero padding.
-__device__ void box_pass(float* a, float* tmp, int d, int T, int gy0, int gx0,
-                         const DetectParams& p) {
-  const int d2 = d / 2;
-  const int tid = threadIdx.y * blockDim.x + threadIdx.x;
-  const int nthr = blockDim.x * blockDim.y;
-  const int NT = T * T;
-  for (int i = tid; i < NT; i += nthr) {
-    const int r = i / T;
-    if (r < d2 || r >= T - d2) continue;
-    float s = a[i];
-    for (int k = 1; k <= d2; ++k) {
-      s = __fadd_rn(s, a[i + k * T]);
-      s = __fadd_rn(s, a[i - k * T]);
-    }
-    tmp[i] = s;
-  }
-  __syncthreads();
-  for (int i = tid; i < NT; i += nthr) {
-    const int r = i / T;
-    const int c = i - r * T;
-    if (c < d2 || c >= T - d2) continue;
-    const int gy = gy0 + r;
-    const int gx = gx0 + c;
-    float s = 0.f;
-    if (inside(gy, gx, p)) {
-      s = tmp[i];
-      for (int k = 1; k <= d2; ++k) {
-        s = __fadd_rn(s, tmp[i + k]);
-        s = __fadd_rn(s, tmp[i - k]);
-      }
-      const int hr = min(gy + d2 + 1, p.H) - max(gy - d2, 0);
-      const int hc = min(gx + d2 + 1, p.W) - max(gx - d2, 0);
-      s = __fmul_rn(s, __fdiv_rn(1.f, (float)hr));
-      s = __fmul_rn(s, __fdiv_rn(1.f, (float)hc));
-    }
-    a[i] = s;
-  }
-  __syncthreads();
-}
 
 __global__ void __launch_bounds__(BLOCK_X * BLOCK_Y)
 detect_kernel(const float* __restrict__ img, const float* __restrict__ thresh,
@@ -133,7 +91,7 @@ detect_kernel(const float* __restrict__ img, const float* __restrict__ thresh,
     const int c = i - r * T;
     const int gy = gy0 + r;
     const int gx = gx0 + c;
-    const float v = inside(gy, gx, p) ? src[(size_t)gy * p.W + gx] : 0.f;
+    const float v = inside(gy, gx, p.H, p.W) ? src[(size_t)gy * p.W + gx] : 0.f;
     A1[i] = v;
     A0[i] = v;
     TMP[i] = 0.f;
@@ -142,9 +100,9 @@ detect_kernel(const float* __restrict__ img, const float* __restrict__ thresh,
   __syncthreads();
 
   for (int k = 0; k < p.n1; ++k)
-    if (p.sizes1[k] > 1) box_pass(A1, TMP, p.sizes1[k], T, gy0, gx0, p);
+    if (p.sizes1[k] > 1) box_pass(A1, TMP, p.sizes1[k], T, gy0, gx0, p.H, p.W);
   for (int k = 0; k < p.n0; ++k)
-    if (p.sizes0[k] > 1) box_pass(A0, TMP, p.sizes0[k], T, gy0, gx0, p);
+    if (p.sizes0[k] > 1) box_pass(A0, TMP, p.sizes0[k], T, gy0, gx0, p.H, p.W);
 
   const float g = __fmul_rn(thresh[b], p.max_img_value);
   const float g2 = __fmul_rn(g, g);
@@ -177,7 +135,7 @@ detect_kernel(const float* __restrict__ img, const float* __restrict__ thresh,
   for (int i = tid; i < NT; i += nthr) {
     const int r = i / T;
     const int c = i - r * T;
-    A0[i] = inside(gy0 + r, gx0 + c, p) ? (A1[i] > 0.f ? 1.f : -1.f) : 0.f;
+    A0[i] = inside(gy0 + r, gx0 + c, p.H, p.W) ? (A1[i] > 0.f ? 1.f : -1.f) : 0.f;
   }
   __syncthreads();
   // t2: window sum of the sign, vertical then horizontal

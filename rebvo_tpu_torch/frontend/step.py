@@ -5,14 +5,17 @@ rebvo_first_t.cpp:259-272).
 
     fe = VOFrontend(params, device="cuda")
     state = fe.bootstrap(fe.init(), frame0, t0)
-    state, out = fe.step(state, frame, t)
+    state, out = fe.step(state, frame, t)              # pure
+    state, out = fe.step_donated(state, frame, t)      # reuses the input
+    state, outs = fe.step_scan(state, frames, ts)      # N frames at once
 
 The step is a fixed sequence of tensor ops with no host synchronisation:
-no `.item()`, no Python branch on a device value, no `nonzero`, so it can
-later be captured as a CUDA graph. The state tensors are treated as
-immutable except the nav-log ring, which `step` appends to in place (the
-JAX package's donated step does the same with its buffers): do not step
-the same state twice and expect the old ring back.
+no `.item()`, no Python branch on a device value, no `nonzero`, so
+`step_scan` captures N steps as one CUDA graph. `step` is pure like the
+JAX package's: it leaves its input state as it was, and so copies the
+nav-log ring to append a row. `step_donated` and `step_scan` may reuse
+the input state's buffers (the ring is appended in place), like the JAX
+package's donated entry points: the caller must not touch the old state.
 
 Each stage of `step` runs under a `record_function` span (`vo.front`,
 `vo.detect` inside it, `vo.pose`, `vo.match_depth`, `vo.keyframe`), so
@@ -26,7 +29,7 @@ are not ported yet and raise NotImplementedError.
 
 from __future__ import annotations
 
-from typing import NamedTuple, Tuple
+from typing import Dict, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -132,6 +135,39 @@ class FrameOutput(NamedTuple):
     Kp: Tensor             # per-frame rescaling ratio
     RKp: Tensor            # its variance estimate
     imu_dbg: Tensor        # [len(IMU_DBG_ROWS), 3] (zeros in mono)
+
+
+def _leaves(tree) -> list:
+    """The tensors of a nest of NamedTuples, in field order."""
+    if isinstance(tree, Tensor):
+        return [tree]
+    return [leaf for sub in tree for leaf in _leaves(sub)]
+
+
+def _tree_map(fn, *trees):
+    """fn over the leaves of NamedTuple nests of one structure."""
+    if isinstance(trees[0], Tensor):
+        return fn(*trees)
+    return type(trees[0])(*[_tree_map(fn, *subs) for subs in zip(*trees)])
+
+
+def _stack_outputs(outs) -> "FrameOutput":
+    """Per-frame outputs stacked on a leading axis, as lax.scan stacks
+    them."""
+    return _tree_map(lambda *xs: torch.stack(xs), *outs)
+
+
+def _copy_state_(dst, src) -> None:
+    """Copy every leaf of `src` into the same leaf of `dst`. A source leaf
+    that shares storage with another destination leaf is cloned first,
+    so no copy reads a buffer that an earlier copy has overwritten."""
+    pairs = [(d, x) for d, x in zip(_leaves(dst), _leaves(src))
+             if d is not x]
+    dst_mem = {d.untyped_storage().data_ptr() for d, _ in pairs}
+    pairs = [(d, x.clone() if x.untyped_storage().data_ptr() in dst_mem
+              else x) for d, x in pairs]
+    for d, x in pairs:
+        d.copy_(x)
 
 
 def pack_nav_row(out: FrameOutput) -> Tensor:
@@ -247,6 +283,16 @@ def init_state(params: REBVOParameters, dtype=torch.float32,
     )
 
 
+class _ScanGraph(NamedTuple):
+    """One chunk of N steps captured as a CUDA graph (VOFrontend.step_scan)."""
+
+    graph: "torch.cuda.CUDAGraph"
+    frames: Tensor         # [N, H, W] static input frames
+    ts: Tensor             # [N] static timestamps
+    outs: FrameOutput      # the N outputs, stacked; rewritten by each replay
+    launches: tuple        # (kernel wrapper, its launches per replay)
+
+
 class VOFrontend:
     """Binds the static configuration and the device; exposes the mono
     step.
@@ -255,6 +301,8 @@ class VOFrontend:
         state = fe.init()
         state = fe.bootstrap(state, frame0, t0)   # detection only
         state, out = fe.step(state, frame, t)     # vision-only
+        state, out = fe.step_donated(state, frame, t)
+        state, outs = fe.step_scan(state, frames, ts)
 
     `UsePallas` keeps its meaning: non-zero runs the fused detector
     (kernels/cuda_scale_space.py: the CUDA kernel on a CUDA device, its
@@ -271,6 +319,11 @@ class VOFrontend:
         self.cam = cam if cam is not None else CameraModel.from_params(params)
         self.use_fused = params.UsePallas != 0
         self.stereo = False
+        # step_scan's CUDA graphs, one per (N, H, W); they all read and
+        # write one static state and share one memory pool
+        self._scan_graphs: Dict[tuple, _ScanGraph] = {}
+        self._scan_state: Optional[VOState] = None
+        self._scan_pool = None
 
     def init(self) -> VOState:
         return init_state(self.params, device=self.device)
@@ -417,8 +470,22 @@ class VOFrontend:
 
     def step(self, state: VOState, frame, t,
              frame_pair=None) -> Tuple[VOState, FrameOutput]:
+        """One frame. Pure: the input state is left as it was."""
         if frame_pair is not None:
             raise NotImplementedError("stereo input: ROADMAP M11")
+        return self._step(state, frame, t, donate=False)
+
+    def step_donated(self, state: VOState, frame, t,
+                     frame_pair=None) -> Tuple[VOState, FrameOutput]:
+        """`step` that may reuse the input state's buffers (it appends the
+        nav-log row in place), the counterpart of the JAX package's
+        donated step: the caller must not touch the old state."""
+        if frame_pair is not None:
+            raise NotImplementedError("stereo input: ROADMAP M11")
+        return self._step(state, frame, t, donate=True)
+
+    def _step(self, state: VOState, frame, t,
+              donate: bool) -> Tuple[VOState, FrameOutput]:
         p = self.params
         cam = self.cam
         dt_f = state.Vel.dtype
@@ -496,7 +563,7 @@ class VOFrontend:
             W_X=W_X_out, Kp=Kp, RKp=P_Kp,
             imu_dbg=torch.zeros((len(IMU_DBG_ROWS), 3), dtype=dt_f,
                                 device=dev))
-        navlog, navlog_n = self._log_nav(state, out)
+        navlog, navlog_n = self._log_nav(state, out, donate)
         new_state = VOState(
             klm=new_final, mask_img=new_mask, field_img=field_img,
             thresh=thresh, retuned=retuned, last_kl_num=kl_num,
@@ -514,16 +581,108 @@ class VOFrontend:
             "the visual-inertial step is not ported yet: ROADMAP M10")
 
     # ------------------------------------------------------------------
+    # Chunked step (the counterpart of the JAX package's lax.scan)
+    # ------------------------------------------------------------------
 
-    def _log_nav(self, state: VOState, out: FrameOutput):
-        """Append the packed nav row to the device ring (in place)."""
+    def step_scan(self, state: VOState, frames,
+                  ts) -> Tuple[VOState, FrameOutput]:
+        """Advance over a chunk of frames ([N, H, W], timestamps [N]);
+        returns the final state and the N per-frame outputs stacked on a
+        leading axis, as lax.scan stacks them. Donates its input state
+        like `step_donated`.
+
+        On a CUDA state the N steps are one CUDA graph, captured at the
+        first call for each (N, H, W) and replayed by every later call.
+        The frames and timestamps are copied into the graph's static
+        buffers, and a state other than the one the last call returned
+        into its static state. The state returned IS that static state,
+        so chained calls copy no state, and the next call overwrites it;
+        the outputs returned are copies. A capture that fails raises: a
+        CUDA state never runs the steps eagerly here. On a CPU state the
+        same N steps run in a Python loop."""
+        frames = self._frame(frames)
+        ts = torch.as_tensor(ts, dtype=state.t.dtype).to(state.t.device)
+        if frames.ndim != 3 or tuple(ts.shape) != tuple(frames.shape[:1]):
+            raise ValueError(f"step_scan: frames must be [N, H, W] and ts "
+                             f"[N], got {tuple(frames.shape)} and "
+                             f"{tuple(ts.shape)}")
+        if state.t.device.type == "cpu":
+            outs = []
+            for i in range(frames.shape[0]):
+                state, out = self.step_donated(state, frames[i], ts[i])
+                outs.append(out)
+            return state, _stack_outputs(outs)
+        if state.t.device.type != "cuda":
+            raise ValueError(f"step_scan: unsupported device "
+                             f"{state.t.device}")
+        g = self._scan_graphs.get(tuple(frames.shape))
+        if g is None:
+            g = self._capture_scan(state, frames, ts)
+        g.frames.copy_(frames)
+        g.ts.copy_(ts)
+        if state is not self._scan_state:
+            _copy_state_(self._scan_state, state)
+        g.graph.replay()
+        for fn, n in g.launches:
+            fn.launches += n
+        return self._scan_state, _tree_map(torch.clone, g.outs)
+
+    def _capture_scan(self, state: VOState, frames: Tensor,
+                      ts: Tensor) -> _ScanGraph:
+        """Capture len(frames) donated steps from the static state as one
+        CUDA graph, PyTorch's recipe: a few warm-up steps on a side
+        stream (they create the cuBLAS and cuSOLVER handles and load the
+        kernels) on a clone of `state`, so the caller's state does not
+        advance; then the capture, which ends by copying the final state
+        into the static one. Launches recorded by the capture are taken
+        off the wrappers' counts; each replay adds them back."""
+        from rebvo_tpu_torch.kernels.cuda_scale_space import WRAPPERS
+        if self._scan_state is None:
+            self._scan_state = _tree_map(torch.clone, state)
+            self._scan_pool = torch.cuda.graph_pool_handle()
+        static = self._scan_state
+        frames_s, ts_s = frames.clone(), ts.clone()
+        main = torch.cuda.current_stream(frames.device)
+        side = torch.cuda.Stream(device=frames.device)
+        side.wait_stream(main)
+        with torch.cuda.stream(side):
+            st = _tree_map(torch.clone, state)
+            for i in range(min(2, frames.shape[0])):
+                st, _ = self.step_donated(st, frames_s[i], ts_s[i])
+        main.wait_stream(side)
+        del st
+        before = [fn.launches for fn in WRAPPERS]
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph, pool=self._scan_pool):
+            st, outs = static, []
+            for i in range(frames.shape[0]):
+                st, out = self.step_donated(st, frames_s[i], ts_s[i])
+                outs.append(out)
+            outs = _stack_outputs(outs)
+            _copy_state_(static, st)
+        launches = []
+        for fn, n0 in zip(WRAPPERS, before):
+            launches.append((fn, fn.launches - n0))
+            fn.launches = n0
+        g = _ScanGraph(graph, frames_s, ts_s, outs, tuple(launches))
+        self._scan_graphs[tuple(frames.shape)] = g
+        return g
+
+    # ------------------------------------------------------------------
+
+    def _log_nav(self, state: VOState, out: FrameOutput, donate: bool):
+        """Append the packed nav row to the device ring: in place when the
+        input state is donated, else into a copy of the ring."""
         if self.params.NavLogCap <= 0:
             return state.navlog, state.navlog_n
         cap = state.navlog.shape[0]
         row = pack_nav_row(out)
         idx = (state.navlog_n % cap).to(torch.int64).reshape(1)
-        state.navlog.index_copy_(0, idx, row[None])
-        return state.navlog, state.navlog_n + 1
+        if donate:
+            navlog = state.navlog.index_copy_(0, idx, row[None])
+        else:
+            navlog = state.navlog.index_copy(0, idx, row[None])
+        return navlog, state.navlog_n + 1
 
     def _kf_track(self, state: VOState, klm: KeylineMap, fv, Pose, Pos,
                   K_scale, kl_num, s_rho_q, est_ok, G_gauge):

@@ -2,7 +2,8 @@
 
 Each `csrc/<name>.cu` exposes a plain C interface and is compiled by
 `nvcc` into `build/kernels/lib<name>-<hash>.so` at the repository root
-(the hash covers the source and the flags, so an edited source rebuilds),
+(the hash covers the source, the shared `csrc/*.cuh` headers and the
+flags, so an edited source or header rebuilds),
 then loaded with `ctypes`. Nothing is built at import: the first call
 that launches a kernel builds its library, and `build_all` builds every
 source at once, one `nvcc` process per source, started together.
@@ -30,7 +31,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "--fmad=false", "-shared", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v"]
 
-SOURCES = ("detect_candidates",)
+SOURCES = ("detect_candidates", "build_scale_space")
 
 
 def _nvcc() -> str:
@@ -43,7 +44,8 @@ def _nvcc() -> str:
 
 
 def _lib_path(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
+    src = (CSRC / f"{name}.cu").read_bytes() + b"".join(
+        h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
     h = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
     return BUILD_DIR / f"lib{name}-{h}.so"
 

@@ -24,6 +24,7 @@ from rebvo_tpu_torch.frontend.step import VOFrontend
 from rebvo_tpu_torch.io.render import synth_frames
 import rebvo_tpu_torch.apps.run_vo, rebvo_tpu_torch.convert
 import rebvo_tpu_torch.kernels.cuda_scale_space, rebvo_tpu_torch.backend.kfvo
+import rebvo_tpu_torch.profiling, rebvo_tpu_torch.bench
 p = REBVOParameters().replace(ImageWidth=96, ImageHeight=64, PPx=48.0,
                               PPy=32.0, KeylineMax=512, NavLogCap=8)
 fr = synth_frames(p, 2)

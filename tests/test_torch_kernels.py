@@ -1,14 +1,18 @@
-"""The fused detector K1 of the PyTorch port against the JAX package.
+"""The scale-space kernels K1 (fused detector) and K2 (scale space) of the
+PyTorch port against the JAX package.
 
-`detect_candidates_plain` (the CUDA kernel's plain PyTorch version, what
-the port runs on the CPU) is held against the JAX Pallas kernel run by
-the Pallas interpreter and against the JAX XLA chain. The interpreter's
-fused XLA program contracts some multiply-adds that the port keeps
-separate, so the fields agree to f32 roundoff (about 1e-5 here) rather
-than bit for bit; the bar is the one tests/test_pallas.py sets between
-the Pallas kernel and XLA: the mask exactly equal, the fields within
-5e-3 at masked pixels.
+`detect_candidates_plain` and `build_scale_space_plain` (the CUDA
+kernels' plain PyTorch versions, what the port runs on the CPU) are held
+against the JAX Pallas kernels run by the Pallas interpreter and against
+the JAX XLA chain. The interpreter's fused XLA program contracts some
+multiply-adds that the port keeps separate, so the fields agree to f32
+roundoff (about 1e-5 here) rather than bit for bit; the bars are the
+ones tests/test_pallas.py sets between the Pallas kernels and XLA: for
+K1 the mask exactly equal and the fields within 5e-3 at masked pixels,
+for K2 all five maps within 5e-3.
 """
+
+import hashlib
 
 import jax.numpy as jnp
 import numpy as np
@@ -18,7 +22,8 @@ import torch
 from rebvo_tpu.kernels.edge_detect import compact_keylines as jax_compact
 from rebvo_tpu.kernels.edge_detect import detect_candidates as jax_detect
 from rebvo_tpu.kernels.edge_detect import detect_keylines as jax_keylines
-from rebvo_tpu.kernels.pallas_scale_space import detect_candidates_pallas
+from rebvo_tpu.kernels.pallas_scale_space import (build_scale_space_pallas,
+                                                  detect_candidates_pallas)
 from rebvo_tpu.kernels.scale_space import build_scale_space as jax_sspace
 from rebvo_tpu_torch.kernels import cuda_scale_space as cs
 from rebvo_tpu_torch.kernels import edge_detect as ted
@@ -158,3 +163,72 @@ def test_detect_keylines_twin_matches_jax():
     np.testing.assert_array_equal(np.asarray(a[1]), b[1].numpy())
     np.testing.assert_array_equal(np.asarray(a[0].n_id), b[0].n_id.numpy())
 
+
+
+# tests/test_pallas.py's scale-space cases: (shape, sigma0, rng seed)
+SS_CASES = [((48, 64), 3.56, 0), ((57, 93), 3.56, 0), ((2, 40, 56), 1.7818, 1),
+            ((48, 96), 1.7818, 2)]
+
+
+def _assert_maps(ref, out):
+    for f in SS_FIELDS:
+        np.testing.assert_allclose(np.asarray(getattr(ref, f)),
+                                   getattr(out, f).numpy(), atol=5e-3,
+                                   err_msg=f)
+
+
+@pytest.mark.parametrize("shape,sigma0,seed", SS_CASES)
+def test_sspace_plain_matches_pallas_interpret(shape, sigma0, seed):
+    """K2's plain version against build_scale_space_pallas, interpreted."""
+    img = _frame(shape, seed)
+    ref = build_scale_space_pallas(jnp.asarray(img), sigma0, 1.2599, 3,
+                                   interpret=True)
+    _assert_maps(ref, cs.build_scale_space_plain(torch.as_tensor(img),
+                                                 sigma0, 1.2599, 3))
+
+
+@pytest.mark.parametrize("shape,sigma0,seed", SS_CASES)
+def test_sspace_plain_matches_xla(shape, sigma0, seed):
+    """K2's plain version against the JAX XLA build_scale_space."""
+    img = _frame(shape, seed)
+    ref = jax_sspace(jnp.asarray(img), sigma0, 1.2599, 3)
+    _assert_maps(ref, cs.build_scale_space_plain(torch.as_tensor(img),
+                                                 sigma0, 1.2599, 3))
+
+
+def test_sspace_wrapper_routes_cpu_to_plain_and_checks_input():
+    img = torch.as_tensor(_frame((40, 56), 4))
+    n0 = cs.build_scale_space_cuda.launches
+    a = cs.build_scale_space_cuda(img, 1.7818, 1.2599)
+    b = cs.build_scale_space_plain(img, 1.7818, 1.2599)
+    for x, y in zip(a, b):
+        assert torch.equal(x, y)
+    assert cs.build_scale_space_cuda.launches == n0   # no kernel launched
+    with pytest.raises(TypeError):
+        cs.build_scale_space_cuda(img.double(), 1.7818, 1.2599)
+    with pytest.raises(ValueError):
+        cs.build_scale_space_cuda(img.t(), 1.7818, 1.2599)
+    with pytest.raises(ValueError):
+        cs.build_scale_space_cuda(img.to("meta"), 1.7818, 1.2599)
+
+
+def test_sspace_halo_from_plan():
+    """K2's tile halo at the EuRoC sigmas: the sizes1 chain's radius 5,
+    and the sizes0 chain's radius 4 plus the gradient's pixel."""
+    s0, s1, _, _ = tss.scale_space_plan(1.7818, 1.2599, 3)
+    assert cs.sspace_halo(s0, s1) == 5
+
+
+def test_detect_plain_unchanged_by_sspace_plain():
+    """detect_candidates_plain builds its scale space with
+    build_scale_space_plain; its output bytes are the ones of the version
+    that built the chains inline (digest recorded from that version)."""
+    img = _frame((2, 40, 56), 6)
+    c = cs.detect_candidates_plain(torch.as_tensor(img),
+                                   torch.tensor([0.02, 0.04]), **KW)
+    h = hashlib.sha256()
+    for t in c:
+        h.update(t.contiguous().numpy().tobytes())
+    assert int(c.mask.sum()) == 830
+    assert h.hexdigest() == ("8d8af1fc013bc91d7f5f640b2e1008a2"
+                             "dbfa9fe48fffe0462d02eb439cec408e")
