@@ -7,10 +7,13 @@ Phases, each printing one JSON line; any failure exits non-zero:
   2. build    — every kernel in csrc/ built by nvcc, all at once;
   3. K1 check — the detector kernel against its plain PyTorch version on
                 the card at 480x752 (a rendered and a uniform frame, two
-                thresholds, a [4,480,752] batch), with their times and the
-                card's bound;
-  3b. K2 check — the scale-space kernel likewise (the same three inputs),
-                and the prefix-sum twin's time and difference;
+                thresholds, a [4,480,752] batch), at ragged shapes (120x188,
+                57x93, 9x13, 481x753) and at plans of other sigma0 (run by
+                the runtime-plan instantiation), with their times, the
+                card's bound, the kernel's ptxas resources and occupancy;
+  3b. K2 check — the scale-space kernel likewise (the same inputs and
+                shapes, its own plans), and the prefix-sum twin's time and
+                difference;
   4. main     — the default-config mono path (752x480, KeylineMax=16384)
                 over 60 rendered frames, every step after the first under
                 torch.cuda.set_sync_debug_mode("error");
@@ -38,6 +41,7 @@ import contextlib
 import io
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -64,6 +68,12 @@ N_SCAN = 16
 N_CPU = 8
 KL_FLOOR = 2000          # keylines a textured 752x480 frame must give
 SS_MAPS = ("img0", "img1", "dog", "dx", "dy")
+CAND_MAPS = ("theta_x", "theta_y", "xs", "ys", "n2_m")
+RAGGED = ((120, 188), (57, 93), (9, 13), (481, 753))
+# sigma0 of plans other than the default, run by the runtime instantiation:
+# K1 halo 5 (size-1 boxes skipped) and 6; K2 halo 3 and 8 (the largest)
+K1_PLANS = (1.2, 1.4)
+K2_PLANS = (1.2, 2.4)
 
 
 def emit(obj):
@@ -188,14 +198,53 @@ def k1_ops_per_pixel(sizes0, sizes1, w):
 
 
 def compare(cand_k, cand_p):
-    """(mask mismatches, max |field diff| at kernel-masked pixels)."""
+    """(mask mismatches, max |field diff| at kernel-masked pixels, max
+    |field diff| over all pixels)."""
     mism = int((cand_k.mask != cand_p.mask).sum().item())
-    err = 0.0
-    for f in ("theta_x", "theta_y", "xs", "ys", "n2_m"):
+    err = err_all = 0.0
+    for f in CAND_MAPS:
         d = (getattr(cand_k, f) - getattr(cand_p, f)).abs()
         err = max(err, float(torch.where(cand_k.mask, d,
                                          torch.zeros_like(d)).max()))
-    return mism, err
+        err_all = max(err_all, float(d.max()))
+    return mism, err, err_all
+
+
+def ptxas_resources(log):
+    """{"fixed" | "runtime": {registers, spill bytes, stack, static shared
+    bytes}} of each instantiation, from nvcc -Xptxas -v."""
+    out, cur = {}, None
+    for ln in log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", ln)
+        if m:
+            cur = out.setdefault("fixed" if "ILb1E" in m.group(1)
+                                 else "runtime", {})
+            continue
+        if cur is None:
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", ln)
+        if m:
+            cur.update(stack_bytes=int(m.group(1)),
+                       spill_store_bytes=int(m.group(2)),
+                       spill_load_bytes=int(m.group(3)))
+        m = re.search(r"Used (\d+) registers", ln)
+        if m:
+            sm = re.search(r"(\d+) bytes smem", ln)
+            cur.update(registers=int(m.group(1)),
+                       static_smem_bytes=int(sm.group(1)) if sm else 0)
+    return out
+
+
+def kernel_resources(name, log):
+    """ptxas resources, dynamic shared bytes and resident blocks per SM of
+    both instantiations of kernel `name`."""
+    res = ptxas_resources(log)
+    for inst, r in res.items():
+        r["dynamic_smem_bytes"] = cs.SMEM_BYTES
+        r["blocks_per_sm"] = cs.blocks_per_sm(name, inst == "fixed")
+        r["threads_per_block"] = cs.BLOCK[0] * cs.BLOCK[1]
+    return res
 
 
 def profile_steps(fe, state, frames, ts):
@@ -289,21 +338,37 @@ def main():
     batch = rng.uniform(0, 765, (4, H, W)).astype(np.float32)
     inputs = (("rendered", frames[5]), ("uniform", uniform),
               ("batch4", batch))
+    ragged = tuple((f"{h}x{w}", rng.uniform(0, 765, (h, w)).astype(
+        np.float32)) for h, w in RAGGED)
+    # (label, frame, sigma0): the default plan on every input and shape,
+    # the other plans on the rendered frame and the odd-width shape
+    k1_inputs = [(lb, im, p.Sigma0) for lb, im in inputs + ragged] + [
+        (f"{lb}@sigma0={s0}", im, s0) for s0 in K1_PLANS
+        for lb, im in (inputs[0], ragged[1])]
     cases = []
-    worst_err, worst_mism = 0.0, 0
-    for label, img in inputs:
+    worst_err, worst_mism, worst_all = 0.0, 0, 0.0
+    for label, img, s0 in k1_inputs:
         x = torch.as_tensor(img, device=dev)
+        kws = dict(kw, sigma0=s0)
+        sz0, sz1, _, _ = scale_space_plan(s0, p.KSigma, 3)
+        plan = cs.launch_plan("detect_candidates", 1, *img.shape[-2:], sz0,
+                              sz1, p.DetectorPlaneFitSize)
         for th in (0.03, p.DetectorThresh):
             tht = torch.full((), th, dtype=torch.float32, device=dev)
-            ck = cs.detect_candidates_cuda(x, tht, **kw)
-            cp = cs.detect_candidates_plain(x, tht, **kw)
+            ck = cs.detect_candidates_cuda(x, tht, **kws)
+            cp = cs.detect_candidates_plain(x, tht, **kws)
             torch.cuda.synchronize()
-            mism, err = compare(ck, cp)
+            mism, err, err_all = compare(ck, cp)
             n_edge = int(cp.mask.sum().item())
-            cases.append({"frame": label, "thresh": th, "edges": n_edge,
-                          "mask_mismatch": mism, "max_abs_err": err})
+            cases.append({"frame": label, "shape": list(img.shape),
+                          "sigma0": s0, "halo": plan.halo,
+                          "instantiation": "fixed" if plan.fixed
+                          else "runtime", "thresh": th, "edges": n_edge,
+                          "mask_mismatch": mism, "max_abs_err": err,
+                          "max_abs_err_all_pixels": err_all})
             worst_err = max(worst_err, err)
             worst_mism = max(worst_mism, mism)
+            worst_all = max(worst_all, err_all)
     # Kernel and plain version round every operation alike (no fused
     # multiply-add on either side), so the mask must agree exactly.
     ok3 = worst_mism == 0 and worst_err < 5e-3
@@ -327,6 +392,11 @@ def main():
     plain_b = device_ms(run_p, 50, flush)
     kernel_ms = statistics.median([k_a, k_b])
     plain_ms = statistics.median([plain_a, plain_b])
+    # the kernel's time depends on the frame: flat regions give the
+    # detector's divisions zero dividends (csrc/detect_candidates.cu)
+    xu = torch.as_tensor(uniform, device=dev)
+    kernel_uniform_ms = device_ms(
+        lambda: cs.detect_candidates_cuda(xu, tht, **kw), 200, flush)
     call_ms = time_cuda(run_k, 200, flush)
     plain_call_ms = time_cuda(run_p, 100, flush)
     sizes0, sizes1, _, _ = scale_space_plan(p.Sigma0, p.KSigma, 3)
@@ -337,8 +407,14 @@ def main():
     t_ops = ops / flops * 1e3
     bound_ms = max(t_bytes, t_ops)
     bound_by = "bytes" if t_bytes >= t_ops else "operations"
+    k1_res = kernel_resources("detect_candidates",
+                              info["detect_candidates"]["ptxas"])
     emit({"phase": "k1_check", "ok": ok3, "cases": cases,
-          "kernel_ms": kernel_ms, "kernel_ms_runs": [k_a, k_b],
+          "mask_mismatch": worst_mism, "max_abs_err": worst_err,
+          "max_abs_err_all_pixels": worst_all,
+          "kernel_ms": kernel_ms, "x_bound": kernel_ms / bound_ms,
+          "kernel_ms_uniform_frame": kernel_uniform_ms,
+          "resources": k1_res, "kernel_ms_runs": [k_a, k_b],
           "plain_ms": plain_ms, "plain_ms_runs": [plain_a, plain_b],
           "call_ms": call_ms, "plain_call_ms": plain_call_ms,
           "bytes": bytes_moved, "ops": ops, "bound_ms": bound_ms,
@@ -352,14 +428,23 @@ def main():
     # Bar: 5e-3 on every map (tests/test_pallas.py's Pallas-vs-XLA bar);
     # kernel and plain version round alike, so 0.0 is expected.
     ss_cases, worst2 = [], 0.0
-    for label, img in inputs:
+    k2_inputs = [(lb, im, p.Sigma0) for lb, im in inputs + ragged] + [
+        (f"{lb}@sigma0={s0}", im, s0) for s0 in K2_PLANS
+        for lb, im in (inputs[0], ragged[1])]
+    for label, img, s0 in k2_inputs:
         xi = torch.as_tensor(img, device=dev)
-        a = cs.build_scale_space_cuda(xi, p.Sigma0, p.KSigma)
-        b = cs.build_scale_space_plain(xi, p.Sigma0, p.KSigma)
+        sz0, sz1, _, _ = scale_space_plan(s0, p.KSigma, 3)
+        plan = cs.launch_plan("build_scale_space", 1, *img.shape[-2:], sz0,
+                              sz1)
+        a = cs.build_scale_space_cuda(xi, s0, p.KSigma)
+        b = cs.build_scale_space_plain(xi, s0, p.KSigma)
         torch.cuda.synchronize()
         errs = {m: float((getattr(a, m) - getattr(b, m)).abs().max())
                 for m in SS_MAPS}
-        ss_cases.append({"frame": label, "max_abs_err": errs})
+        ss_cases.append({"frame": label, "shape": list(img.shape),
+                         "sigma0": s0, "halo": plan.halo,
+                         "instantiation": "fixed" if plan.fixed
+                         else "runtime", "max_abs_err": errs})
         worst2 = max(worst2, *errs.values())
     ok3b = worst2 < 5e-3
 
@@ -392,8 +477,12 @@ def main():
     t2_bytes, t2_ops = bytes2 / bw * 1e3, ops2 / flops * 1e3
     bound2_ms = max(t2_bytes, t2_ops)
     bound2_by = "bytes" if t2_bytes >= t2_ops else "operations"
+    k2_res = kernel_resources("build_scale_space",
+                              info["build_scale_space"]["ptxas"])
     emit({"phase": "k2_check", "ok": ok3b, "cases": ss_cases,
-          "kernel_ms": kernel2_ms, "kernel_ms_runs": [k2_a, k2_b],
+          "max_abs_err": worst2,
+          "kernel_ms": kernel2_ms, "x_bound": kernel2_ms / bound2_ms,
+          "resources": k2_res, "kernel_ms_runs": [k2_a, k2_b],
           "plain_ms": plain2_ms, "plain_ms_runs": [plain2_a, plain2_b],
           "call_ms": call2_ms, "plain_call_ms": plain2_call_ms,
           "torch_twin_ms": twin_ms, "torch_twin_max_abs_diff": twin_err,
@@ -602,9 +691,11 @@ def main():
         "replaces": "rebvo_tpu/kernels/pallas_scale_space.py:225",
         "replaces_function": "detect_candidates_pallas (_detect_kernel)",
         "launches": launches, "mask_mismatch": worst_mism,
-        "max_abs_err": worst_err, "ms": kernel_ms, "kernel_ms": kernel_ms,
+        "max_abs_err": worst_err, "max_abs_err_all_pixels": worst_all,
+        "ms": kernel_ms, "kernel_ms": kernel_ms,
         "call_ms": call_ms,
         "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+        "x_bound": kernel_ms / bound_ms, "resources": k1_res,
         "library_ms": None,
         "launches_by_path": {
             "main_path": launches,
@@ -618,7 +709,8 @@ def main():
         "launches": bench_launches["build_scale_space_cuda"],
         "max_abs_err": worst2, "ms": kernel2_ms, "kernel_ms": kernel2_ms,
         "call_ms": call2_ms, "plain_ms": plain2_ms, "bound_ms": bound2_ms,
-        "bound_by": bound2_by, "library_ms": None,
+        "bound_by": bound2_by, "x_bound": kernel2_ms / bound2_ms,
+        "resources": k2_res, "library_ms": None,
         "launches_by_path": {
             "main_path": main_launches["build_scale_space_cuda"],
             "bench": bench_launches["build_scale_space_cuda"]}}]})

@@ -6,7 +6,7 @@
 // reference's sspace::build (src/mtracklib/sspace.cpp:52-85):
 //   * img1 and img0, two clipped, normalised Kovesi box chains (sizes1,
 //     sizes0), each box pass a vertical then a horizontal shift-and-add
-//     sum divided by the clipped window size (scale_space_tile.cuh);
+//     sum divided by the clipped window size;
 //   * dog = img1 - img0;
 //   * dx, dy, the central-difference gradient of img0, zero on the 1-pixel
 //     image border.
@@ -17,122 +17,141 @@
 // Bound. Per pixel the kernel must read the frame once (4 B) and write five
 // f32 maps once (20 B): 24 B/px, 8.7 MB for one 480x752 frame, against about
 // 51 float operations per pixel (counted in chip_smoke.py), so bytes bound it
-// (about 2.6 us at the H100 SXM's 3.35 TB/s). Design: K1's schedule without
-// the detector tests. One 256-thread block per 32x32 output tile (a grid
-// dimension for the batch); the tile and a halo of max(r0 + 1, r1) pixels
-// (5 at the defaults: the sizes1 chain's radius, and the sizes0 chain's
-// radius plus the gradient's pixel; passed in by the wrapper) are loaded
-// into shared memory once, both chains run there, and each output map is
-// written once. Device memory then sees the bound's bytes plus the halo's
-// re-reads of the input (42^2/32^2 = 1.7x, mostly served by L2). Like K1,
-// this first version keeps one pass at a time behind __syncthreads().
+// (about 2.6 us at the H100 SXM's 3.35 TB/s). Design: K1's tile pipeline
+// (tile_pipeline.cuh) without the detector. Phase P writes img0 over a
+// 1-pixel band (the gradient's) and img1 over the tile; the output phase
+// gives a thread 4 adjacent pixels of one row, float4 loads from shared
+// memory and five float4 stores. 5 barriers in all.
 
-#include <cuda_runtime.h>
+#include <stdint.h>
 
-#include "scale_space_tile.cuh"
+#include "tile_pipeline.cuh"
 
 namespace {
 
-using sstile::box_pass;
-using sstile::inside;
-
-constexpr int TILE = 32;
-constexpr int MAX_HALO = 8;
-constexpr int SMAX = TILE + 2 * MAX_HALO;
-constexpr int MAX_BOXES = 4;
-constexpr int BLOCK_X = 32;
-constexpr int BLOCK_Y = 8;
-constexpr int ROWS_PER_THREAD = TILE / BLOCK_Y;
+using namespace tp;
 
 struct SSpaceParams {
   int H, W;
-  int halo;
-  int n0, n1;
-  int sizes0[MAX_BOXES];
-  int sizes1[MAX_BOXES];
+  Plan plan;
+  int vec_in, vec_out;
 };
 
-__global__ void __launch_bounds__(BLOCK_X * BLOCK_Y)
+// The default plan: sizes0 = [3, 3, 5], sizes1 = [3, 5, 5]; img0 is needed
+// one pixel past the tile, img1 on it: halo max(4 + 1, 5) = 5.
+__host__ __device__ constexpr Plan k2_default_plan() {
+  return Plan{5, {3, 3}, {{1, 1, 2, 0}, {1, 2, 2, 0}}, {1, 0}, 0};
+}
+
+template <bool FIXED, int HALO, int MAXR>
+__global__ void __launch_bounds__(NTHREADS, 2)
 sspace_kernel(const float* __restrict__ img, float* __restrict__ o0,
               float* __restrict__ o1, float* __restrict__ odog,
               float* __restrict__ odx, float* __restrict__ ody,
-              SSpaceParams p) {
-  __shared__ float sh[3][SMAX * SMAX];
-  float* A1 = sh[0];   // sizes1 chain
-  float* A0 = sh[1];   // sizes0 chain
-  float* TMP = sh[2];  // vertical sums
-
-  const int T = TILE + 2 * p.halo;
-  const int NT = T * T;
+              const SSpaceParams p) {
+  extern __shared__ float4 smem4[];
+  const Smem s = carve(reinterpret_cast<float*>(smem4));
+  const Plan pl = FIXED ? k2_default_plan() : p.plan;
+  constexpr int SEG = (OH + 2 * HALO + NS - 1) / NS;
+  const int H = p.H, W = p.W;
   const int b = blockIdx.z;
-  const int gy0 = blockIdx.y * TILE - p.halo;
-  const int gx0 = blockIdx.x * TILE - p.halo;
-  const size_t plane = (size_t)p.H * p.W;
-  const float* src = img + b * plane;
-  const int tid = threadIdx.y * blockDim.x + threadIdx.x;
-  const int nthr = blockDim.x * blockDim.y;
+  const int oy0 = blockIdx.y * OH;
+  const int ox0 = blockIdx.x * OW;
+  const size_t plane = (size_t)H * W;
 
-  for (int i = tid; i < NT; i += nthr) {
-    const int r = i / T;
-    const int c = i - r * T;
-    const int gy = gy0 + r;
-    const int gx = gx0 + c;
-    const float v = inside(gy, gx, p.H, p.W) ? src[(size_t)gy * p.W + gx] : 0.f;
-    A1[i] = v;
-    A0[i] = v;
-    TMP[i] = 0.f;
-  }
+  load_tile(s, pl, img + b * plane, p.vec_in, oy0, ox0, H, W);
+  chain_phases<SEG, MAXR, FIXED ? MAX_BOXES : 1>(s, pl, oy0, ox0, H, W);
+  // phase P: img0 (outa) over [-1, OH + 1), img1 (outb) over the tile
+  chain_final<SEG, MAXR>(s, pl, 0, s.outa, oy0, ox0, H, W);
+  chain_final<SEG, MAXR>(s, pl, 1, s.outb, oy0, ox0, H, W);
   __syncthreads();
 
-  for (int k = 0; k < p.n1; ++k)
-    if (p.sizes1[k] > 1) box_pass(A1, TMP, p.sizes1[k], T, gy0, gx0, p.H, p.W);
-  for (int k = 0; k < p.n0; ++k)
-    if (p.sizes0[k] > 1) box_pass(A0, TMP, p.sizes0[k], T, gy0, gx0, p.H, p.W);
-
-  const int ox = threadIdx.x;
-  for (int j = 0; j < ROWS_PER_THREAD; ++j) {
-    const int oy = threadIdx.y + BLOCK_Y * j;
-    const int gy = blockIdx.y * TILE + oy;
-    const int gx = blockIdx.x * TILE + ox;
-    if (gy >= p.H || gx >= p.W) continue;
-    const int i = (p.halo + oy) * T + p.halo + ox;
-    const float x0 = A0[i];
-    const float x1 = A1[i];
-    float dx = 0.f, dy = 0.f;
-    if (gy > 0 && gy < p.H - 1 && gx > 0 && gx < p.W - 1) {
-      dx = __fsub_rn(A0[i + 1], A0[i - 1]);
-      dy = __fsub_rn(A0[i + T], A0[i - T]);
+  // output phase: 4 pixels of one row a thread
+  const int tid = threadIdx.y * NX + threadIdx.x;
+  if (tid >= GROUPS * OH) return;
+  const int rho = tid / GROUPS;
+  const int kap0 = 4 * (tid - rho * GROUPS);
+  const int gy = oy0 + rho;
+  const int gx0 = ox0 + kap0;
+  if (gy >= H || gx0 >= W) return;
+  const int i = (rho + HP) * NX + kap0 + HP;
+  float a0c[12], a0d[4], a0u[4], x1[4];
+  load4<3>(a0c, s.outa + i - 4);
+  load4<1>(a0d, s.outa + i + NX);
+  load4<1>(a0u, s.outa + i - NX);
+  load4<1>(x1, s.outb + i);
+  float x0[4], dog[4], dx[4], dy[4];
+#pragma unroll
+  for (int u = 0; u < 4; ++u) {
+    const int gx = gx0 + u;
+    x0[u] = a0c[4 + u];
+    dog[u] = __fsub_rn(x1[u], x0[u]);
+    dx[u] = 0.f;
+    dy[u] = 0.f;
+    if (gy > 0 && gy < H - 1 && gx > 0 && gx < W - 1) {
+      dx[u] = __fsub_rn(a0c[4 + u + 1], a0c[4 + u - 1]);
+      dy[u] = __fsub_rn(a0d[u], a0u[u]);
     }
-    const size_t o = b * plane + (size_t)gy * p.W + gx;
-    o0[o] = x0;
-    o1[o] = x1;
-    odog[o] = __fsub_rn(x1, x0);
-    odx[o] = dx;
-    ody[o] = dy;
   }
+  const size_t o = b * plane + (size_t)gy * W + gx0;
+  const int n = min(4, W - gx0);
+  const bool vec = p.vec_out && n == 4;
+  store4(o0, o, x0, vec, n);
+  store4(o1, o, x1, vec, n);
+  store4(odog, o, dog, vec, n);
+  store4(odx, o, dx, vec, n);
+  store4(ody, o, dy, vec, n);
 }
 
+// the two instantiations: the default plan, and any plan read at run time
+#define K2_FIXED sspace_kernel<true, 5, 2>
+#define K2_RUNTIME sspace_kernel<false, MAX_HALO, MAX_HALO>
+
 }  // namespace
+
+#ifndef TP_HOST_EMU
+// Allows both instantiations their dynamic shared memory (over 48 KB);
+// called once when the library is loaded, before any launch or capture.
+extern "C" int build_scale_space_init() {
+  cudaError_t e = cudaFuncSetAttribute(
+      K2_FIXED, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_BYTES);
+  if (e == cudaSuccess)
+    e = cudaFuncSetAttribute(
+        K2_RUNTIME, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_BYTES);
+  return (int)e;
+}
+
+// Resident blocks per SM of one instantiation (fixed != 0: the default
+// plan's), from the occupancy calculator.
+extern "C" int build_scale_space_occupancy(int fixed, int* blocks) {
+  return (int)(fixed ? cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+                           blocks, K2_FIXED, NTHREADS, SMEM_BYTES)
+                     : cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+                           blocks, K2_RUNTIME, NTHREADS, SMEM_BYTES));
+}
 
 extern "C" int build_scale_space_launch(
     const float* img, float* img0, float* img1, float* dog, float* dx,
     float* dy, int B, int H, int W, const int* sizes0, int n0,
-    const int* sizes1, int n1, int halo, void* stream) {
-  if (halo > MAX_HALO || n0 > MAX_BOXES || n1 > MAX_BOXES)
-    return (int)cudaErrorInvalidValue;
+    const int* sizes1, int n1, int halo, int fixed, void* stream) {
   SSpaceParams p;
+  if (!make_plan(&p.plan, sizes0, n0, sizes1, n1, 1, 0, 0, halo))
+    return (int)cudaErrorInvalidValue;
+  if (fixed && !same_plan(p.plan, k2_default_plan()))
+    return (int)cudaErrorInvalidValue;
   p.H = H;
   p.W = W;
-  p.halo = halo;
-  p.n0 = n0;
-  p.n1 = n1;
-  for (int k = 0; k < MAX_BOXES; ++k) {
-    p.sizes0[k] = k < n0 ? sizes0[k] : 1;
-    p.sizes1[k] = k < n1 ? sizes1[k] : 1;
-  }
-  dim3 block(BLOCK_X, BLOCK_Y);
-  dim3 grid((W + TILE - 1) / TILE, (H + TILE - 1) / TILE, B);
-  sspace_kernel<<<grid, block, 0, (cudaStream_t)stream>>>(img, img0, img1,
-                                                          dog, dx, dy, p);
+  p.vec_out = W % 4 == 0;
+  p.vec_in = p.vec_out && (uintptr_t)img % 16 == 0;
+  const dim3 block(NX, NS);
+  const dim3 grid((W + OW - 1) / OW, (H + OH - 1) / OH, B);
+  cudaStream_t st = (cudaStream_t)stream;
+  if (fixed)
+    K2_FIXED<<<grid, block, SMEM_BYTES, st>>>(img, img0, img1, dog, dx, dy,
+                                              p);
+  else
+    K2_RUNTIME<<<grid, block, SMEM_BYTES, st>>>(img, img0, img1, dog, dx,
+                                                dy, p);
   return (int)cudaGetLastError();
 }
+#endif

@@ -19,246 +19,289 @@
 // then see the same floats on the card as on the CPU.
 //
 // Bound. Per pixel the kernel must read the frame once (4 B) and write the
-// six maps once (1 + 5*4 = 21 B): 25 B/px, 9.0 MB for one 480x752 frame, and
-// about 116 float operations per pixel (counted in chip_smoke.py), far
-// below the card's compute rate, so bytes bound it (a 480x752 frame is ~2.7 us at 3.35 TB/s on an H100
-// SXM). Design: one 256-thread block per 32x32 output tile (plus a grid
-// dimension for the batch). The tile and its halo (box-chain radius + w,
-// 7 px at the defaults, passed in by the wrapper from scale_space_plan) are
-// loaded into shared memory once; every pass then runs in shared memory and
-// each output map is written exactly once, so device memory sees the
-// bound's bytes plus the halo re-reads (46^2/32^2 = 2.1x on the input,
-// mostly served by L2). This first version favours a simple, exact schedule
-// (a __syncthreads() between passes, one pass at a time) over speed.
+// six maps once (1 + 5*4 = 21 B): 25 B/px, 9.0 MB for one 480x752 frame,
+// against about 116 float operations per pixel (counted in chip_smoke.py),
+// so bytes bound it (about 2.7 us on an H100 SXM at 3.35 TB/s). What held
+// the first version back was the instruction schedule around the
+// arithmetic, and the design answers it (tile_pipeline.cuh): a 30x48
+// output tile per 384-thread block, the box chains in 3 phases where a
+// thread walks one column with the vertical sums in registers, each pass
+// over only the band later passes read, reciprocal tables instead of
+// per-cell divisions, 16-byte loads and stores; 5 barriers in all.
+//
+// Detector part, after the chains: phase P writes the DoG, its sign and
+// img0 over a band of w pixels (at least 1) around the tile; the output
+// phase gives a thread 4 adjacent pixels of one row. It walks the 2w+1
+// window rows in the reference's order (0, +1, -1, +2, -2, ...), each row
+// float4 loads of the DoG and the sign, and keeps in registers the
+// vertical sums of the sign, of the DoG and of the j-weighted DoG for the
+// 4 + 2w columns its horizontal sums read, and the vertical sum of the
+// horizontally j-weighted DoG for its 4 pixels.
 
-#include <cuda_runtime.h>
 #include <stdint.h>
 
-#include "scale_space_tile.cuh"
+#include "tile_pipeline.cuh"
 
 namespace {
 
-using sstile::box_pass;
-using sstile::inside;
-
-constexpr int TILE = 32;
-constexpr int MAX_HALO = 8;
-constexpr int SMAX = TILE + 2 * MAX_HALO;
-constexpr int MAX_BOXES = 4;
-constexpr int BLOCK_X = 32;
-constexpr int BLOCK_Y = 8;
-constexpr int ROWS_PER_THREAD = TILE / BLOCK_Y;
+using namespace tp;
 
 struct DetectParams {
   int H, W;
-  int halo;
-  int n0, n1;
-  int sizes0[MAX_BOXES];
-  int sizes1[MAX_BOXES];
-  int win_s;
-  float pn_limit;       // win_area * per_hist
+  Plan plan;
+  int vec_in, vec_out;   // 16-byte loads of the frame, stores of the maps
+  float pn_limit;        // win_area * per_hist
   float max_img_value;
   float dog_thresh;
-  float sum_j2;         // (2w+1) * sum_j j^2
-  float win_area;       // (2w+1)^2
+  float sum_j2;          // (2w+1) * sum_j j^2
+  float win_area;        // (2w+1)^2
 };
 
-__global__ void __launch_bounds__(BLOCK_X * BLOCK_Y)
+// The default plan: Sigma0 = 1.7818, KSigma = 1.2599, box_n = 3 give
+// sizes0 = [3, 3, 5], sizes1 = [3, 5, 5]; w = DetectorPlaneFitSize = 2.
+__host__ __device__ constexpr Plan k1_default_plan() {
+  return Plan{7, {3, 3}, {{1, 1, 2, 0}, {1, 2, 2, 0}}, {2, 2}, 2};
+}
+
+// __fdiv_rn(a, b), except that a zero `a` over a positive `b` returns `a`
+// (the IEEE quotient, its sign included) without dividing: a zero dividend,
+// which every flat region of a frame gives, sends the division down its
+// slow path.
+__device__ __forceinline__ float div_pos(float a, float b) {
+  if (a == 0.f && b > 0.f) return a;
+  return __fdiv_rn(a, b);
+}
+
+template <bool FIXED, int HALO, int MAXR, int WMAX>
+__global__ void __launch_bounds__(NTHREADS, 2)
 detect_kernel(const float* __restrict__ img, const float* __restrict__ thresh,
               uint8_t* __restrict__ mask, float* __restrict__ otx,
               float* __restrict__ oty, float* __restrict__ oxs,
               float* __restrict__ oys, float* __restrict__ on2,
-              DetectParams p) {
-  __shared__ float sh[4][SMAX * SMAX];
-  float* A1 = sh[0];   // sizes1 chain, then the DoG
-  float* A0 = sh[1];   // sizes0 chain, then sign, then wsum_x(dog)
-  float* TMP = sh[2];  // vertical sums
-  float* AUX = sh[3];  // wsum_y(dog)
-
-  const int T = TILE + 2 * p.halo;
-  const int NT = T * T;
+              const DetectParams p) {
+  extern __shared__ float4 smem4[];
+  const Smem s = carve(reinterpret_cast<float*>(smem4));
+  const Plan pl = FIXED ? k1_default_plan() : p.plan;
+  constexpr int SEG = (OH + 2 * HALO + NS - 1) / NS;
+  const int H = p.H, W = p.W;
   const int b = blockIdx.z;
-  const int gy0 = blockIdx.y * TILE - p.halo;
-  const int gx0 = blockIdx.x * TILE - p.halo;
-  const size_t plane = (size_t)p.H * p.W;
-  const float* src = img + b * plane;
-  const int tid = threadIdx.y * blockDim.x + threadIdx.x;
-  const int nthr = blockDim.x * blockDim.y;
-  const int w = p.win_s;
+  const int oy0 = blockIdx.y * OH;
+  const int ox0 = blockIdx.x * OW;
+  const size_t plane = (size_t)H * W;
 
-  for (int i = tid; i < NT; i += nthr) {
-    const int r = i / T;
-    const int c = i - r * T;
-    const int gy = gy0 + r;
-    const int gx = gx0 + c;
-    const float v = inside(gy, gx, p.H, p.W) ? src[(size_t)gy * p.W + gx] : 0.f;
-    A1[i] = v;
-    A0[i] = v;
-    TMP[i] = 0.f;
-    AUX[i] = 0.f;
+  load_tile(s, pl, img + b * plane, p.vec_in, oy0, ox0, H, W);
+  chain_phases<SEG, MAXR, FIXED ? MAX_BOXES : 1>(s, pl, oy0, ox0, H, W);
+
+  // phase P: DoG (outa), img0 (outb) and the DoG's sign (+-1 inside the
+  // image, 0 outside, into a vertical-sum buffer no chain reads now) over
+  // [-E, OH + E), E = max(w, 1)
+  float* const sgn = tbuf(s, 0, plan_phases(pl) & 1);
+  {
+    const int kap = (int)threadIdx.x - HP;
+    const int E = pl.E[0];
+    if (kap >= -E && kap < OW + E) {
+      int rho0;
+      const int sl = segment(E, &rho0);
+      const float ic0 = col_recip(s, 0, pl.n[0], kap);
+      const float ic1 = col_recip(s, 1, pl.n[1], kap);
+#pragma unroll
+      for (int t = 0; t < SEG; ++t) {
+        if (t < sl) {
+          const int rho = rho0 + t;
+          const float a0 = chain_value<MAXR>(s, pl, 0, pl.n[0], rho, kap, ic0,
+                                             oy0, ox0, H, W);
+          const float a1 = chain_value<MAXR>(s, pl, 1, pl.n[1], rho, kap, ic1,
+                                             oy0, ox0, H, W);
+          const int i = (rho + HP) * NX + threadIdx.x;
+          const float dog = __fsub_rn(a1, a0);
+          s.outa[i] = dog;
+          s.outb[i] = a0;
+          sgn[i] = inside(oy0 + rho, ox0 + kap, H, W)
+                       ? (dog > 0.f ? 1.f : -1.f) : 0.f;
+        }
+      }
+    }
   }
   __syncthreads();
 
-  for (int k = 0; k < p.n1; ++k)
-    if (p.sizes1[k] > 1) box_pass(A1, TMP, p.sizes1[k], T, gy0, gx0, p.H, p.W);
-  for (int k = 0; k < p.n0; ++k)
-    if (p.sizes0[k] > 1) box_pass(A0, TMP, p.sizes0[k], T, gy0, gx0, p.H, p.W);
+  // output phase: 4 pixels of one row a thread
+  const int tid = threadIdx.y * NX + threadIdx.x;
+  if (tid >= GROUPS * OH) return;
+  const int rho = tid / GROUPS;
+  const int kap0 = 4 * (tid - rho * GROUPS);
+  const int gy = oy0 + rho;
+  const int gx0 = ox0 + kap0;
+  if (gy >= H || gx0 >= W) return;
+  const int w = pl.w;
+  constexpr int WQ = (WMAX + 3) / 4;
+  constexpr int C0 = 4 * WQ;            // loaded column m is kap0 - C0 + m
+  constexpr int NC = 4 + 2 * C0;
+  float vd[NC], vs[NC], vw[NC], sx[4];
+  const int i0 = (rho + HP) * NX + kap0 + HP - C0;
+  const float* dog0 = s.outa + i0;
+  const float* sgn0 = sgn + i0;
+#pragma unroll(FIXED ? 2 * WMAX + 1 : 1)
+  for (int step = 0; step <= 2 * WMAX; ++step) {
+    const int k = (step + 1) / 2;       // rows 0, +1, -1, +2, -2, ...
+    const int dl = (step & 1) ? k : -k;
+    if (k > w) break;
+    float row[NC], sg[NC];
+    load4<NC / 4>(row, dog0 + dl * NX);
+    load4<NC / 4>(sg, sgn0 + dl * NX);
+    const float kf = (float)k;
+#pragma unroll
+    for (int m = 0; m < NC; ++m) {
+      if (m < C0 - w || m >= C0 + 4 + w) continue;
+      if (step == 0) {
+        vd[m] = row[m];
+        vs[m] = sg[m];
+        vw[m] = 0.f;
+      } else {
+        vd[m] = __fadd_rn(vd[m], row[m]);
+        vs[m] = __fadd_rn(vs[m], sg[m]);
+        vw[m] = dl > 0 ? __fadd_rn(vw[m], __fmul_rn(kf, row[m]))
+                       : __fsub_rn(vw[m], __fmul_rn(kf, row[m]));
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      float hw = 0.f;
+#pragma unroll
+      for (int j = 1; j <= WMAX; ++j) {
+        if (j <= w) {
+          const float jf = (float)j;
+          hw = __fadd_rn(hw, __fmul_rn(jf, row[C0 + u + j]));
+          hw = __fsub_rn(hw, __fmul_rn(jf, row[C0 + u - j]));
+        }
+      }
+      sx[u] = step == 0 ? hw : __fadd_rn(sx[u], hw);
+    }
+  }
 
   const float g = __fmul_rn(thresh[b], p.max_img_value);
   const float g2 = __fmul_rn(g, g);
   const float gd = __fmul_rn(g, p.dog_thresh);
   const float gd2 = __fmul_rn(gd, gd);
-
-  const int ox = threadIdx.x;
-  bool t1[ROWS_PER_THREAD];
-  bool t2[ROWS_PER_THREAD];
-
-  // t1: squared gradient norm of img0 (zero on the 1-px image border)
-  for (int j = 0; j < ROWS_PER_THREAD; ++j) {
-    const int oy = threadIdx.y + BLOCK_Y * j;
-    const int i = (p.halo + oy) * T + p.halo + ox;
-    const int gy = blockIdx.y * TILE + oy;
-    const int gx = blockIdx.x * TILE + ox;
+  const float* a0row = s.outb + (rho + HP) * NX + kap0 + HP;
+  float a0c[12], a0d[4], a0u[4];
+  load4<3>(a0c, a0row - 4);
+  load4<1>(a0d, a0row + NX);
+  load4<1>(a0u, a0row - NX);
+  float ftx[4], fty[4], fxs[4], fys[4], fn2[4];
+  uint8_t fm[4];
+#pragma unroll
+  for (int u = 0; u < 4; ++u) {
+    const int gx = gx0 + u;
+    const int c = C0 + u;
+    float pn = vs[c], sy = vw[c], sc = vd[c];
+#pragma unroll
+    for (int j = 1; j <= WMAX; ++j) {
+      if (j <= w) {
+        pn = __fadd_rn(pn, vs[c + j]);
+        pn = __fadd_rn(pn, vs[c - j]);
+        sy = __fadd_rn(sy, vw[c + j]);
+        sy = __fadd_rn(sy, vw[c - j]);
+        sc = __fadd_rn(sc, vd[c + j]);
+        sc = __fadd_rn(sc, vd[c - j]);
+      }
+    }
     float dx = 0.f, dy = 0.f;
-    if (gy > 0 && gy < p.H - 1 && gx > 0 && gx < p.W - 1) {
-      dx = __fsub_rn(A0[i + 1], A0[i - 1]);
-      dy = __fsub_rn(A0[i + T], A0[i - T]);
+    if (gy > 0 && gy < H - 1 && gx > 0 && gx < W - 1) {
+      dx = __fsub_rn(a0c[4 + u + 1], a0c[4 + u - 1]);
+      dy = __fsub_rn(a0d[u], a0u[u]);
     }
-    t1[j] = __fadd_rn(__fmul_rn(dx, dx), __fmul_rn(dy, dy)) >= g2;
-  }
-  __syncthreads();
-
-  // DoG into A1; outside the image both chains are 0, so the DoG is too
-  for (int i = tid; i < NT; i += nthr) A1[i] = __fsub_rn(A1[i], A0[i]);
-  __syncthreads();
-  // sign map: +-1 inside the image, 0 outside (the window sums pad with 0)
-  for (int i = tid; i < NT; i += nthr) {
-    const int r = i / T;
-    const int c = i - r * T;
-    A0[i] = inside(gy0 + r, gx0 + c, p.H, p.W) ? (A1[i] > 0.f ? 1.f : -1.f) : 0.f;
-  }
-  __syncthreads();
-  // t2: window sum of the sign, vertical then horizontal
-  for (int i = tid; i < NT; i += nthr) {
-    const int r = i / T;
-    if (r < w || r >= T - w) continue;
-    float s = A0[i];
-    for (int k = 1; k <= w; ++k) {
-      s = __fadd_rn(s, A0[i + k * T]);
-      s = __fadd_rn(s, A0[i - k * T]);
-    }
-    TMP[i] = s;
-  }
-  __syncthreads();
-  for (int j = 0; j < ROWS_PER_THREAD; ++j) {
-    const int oy = threadIdx.y + BLOCK_Y * j;
-    const int i = (p.halo + oy) * T + p.halo + ox;
-    float s = TMP[i];
-    for (int k = 1; k <= w; ++k) {
-      s = __fadd_rn(s, TMP[i + k]);
-      s = __fadd_rn(s, TMP[i - k]);
-    }
-    t2[j] = fabsf(s) <= p.pn_limit;
-  }
-  __syncthreads();
-
-  // plane-fit window sums of the DoG:
-  //   TMP = vertical sum, AUX = vertical j-weighted sum,
-  //   A0  = horizontal j-weighted sum
-  for (int i = tid; i < NT; i += nthr) {
-    const int r = i / T;
-    const int c = i - r * T;
-    if (r >= w && r < T - w) {
-      float s = A1[i];
-      float sw = 0.f;
-      for (int k = 1; k <= w; ++k) {
-        const float kf = (float)k;
-        s = __fadd_rn(s, A1[i + k * T]);
-        s = __fadd_rn(s, A1[i - k * T]);
-        sw = __fadd_rn(sw, __fmul_rn(kf, A1[i + k * T]));
-        sw = __fsub_rn(sw, __fmul_rn(kf, A1[i - k * T]));
-      }
-      TMP[i] = s;
-      AUX[i] = sw;
-    }
-    if (c >= w && c < T - w) {
-      float sw = 0.f;
-      for (int k = 1; k <= w; ++k) {
-        const float kf = (float)k;
-        sw = __fadd_rn(sw, __fmul_rn(kf, A1[i + k]));
-        sw = __fsub_rn(sw, __fmul_rn(kf, A1[i - k]));
-      }
-      A0[i] = sw;
-    }
-  }
-  __syncthreads();
-
-  for (int j = 0; j < ROWS_PER_THREAD; ++j) {
-    const int oy = threadIdx.y + BLOCK_Y * j;
-    const int gy = blockIdx.y * TILE + oy;
-    const int gx = blockIdx.x * TILE + ox;
-    if (gy >= p.H || gx >= p.W) continue;
-    const int i = (p.halo + oy) * T + p.halo + ox;
-    float sx = A0[i];
-    float sy = AUX[i];
-    float sc = TMP[i];
-    for (int k = 1; k <= w; ++k) {
-      sx = __fadd_rn(sx, A0[i + k * T]);
-      sx = __fadd_rn(sx, A0[i - k * T]);
-      sy = __fadd_rn(sy, AUX[i + k]);
-      sy = __fadd_rn(sy, AUX[i - k]);
-      sc = __fadd_rn(sc, TMP[i + k]);
-      sc = __fadd_rn(sc, TMP[i - k]);
-    }
-    const float tx = __fdiv_rn(sx, p.sum_j2);
-    const float ty = __fdiv_rn(sy, p.sum_j2);
-    const float tc = __fdiv_rn(sc, p.win_area);
+    const bool t1 = __fadd_rn(__fmul_rn(dx, dx), __fmul_rn(dy, dy)) >= g2;
+    const bool t2 = fabsf(pn) <= p.pn_limit;
+    const float tx = div_pos(sx[u], p.sum_j2);
+    const float ty = div_pos(sy, p.sum_j2);
+    const float tc = div_pos(sc, p.win_area);
     const float n2 = __fadd_rn(__fmul_rn(tx, tx), __fmul_rn(ty, ty));
     const float denom = n2 > 0.f ? n2 : 1.f;
-    const float xs = __fdiv_rn(__fmul_rn(-tx, tc), denom);
-    const float ys = __fdiv_rn(__fmul_rn(-ty, tc), denom);
+    const float xs = div_pos(__fmul_rn(-tx, tc), denom);
+    const float ys = div_pos(__fmul_rn(-ty, tc), denom);
     const bool t3 = fabsf(xs) <= 0.5f && fabsf(ys) <= 0.5f;
     const bool t4 = n2 >= gd2;
-    const bool interior = gy >= w && gy < p.H - w && gx >= w && gx < p.W - w;
-    const size_t o = b * plane + (size_t)gy * p.W + gx;
-    mask[o] = (t1[j] && t2[j] && t3 && t4 && interior) ? 1 : 0;
-    otx[o] = tx;
-    oty[o] = ty;
-    oxs[o] = xs;
-    oys[o] = ys;
-    on2[o] = n2;
+    const bool interior = gy >= w && gy < H - w && gx >= w && gx < W - w;
+    fm[u] = (t1 && t2 && t3 && t4 && interior) ? 1 : 0;
+    ftx[u] = tx;
+    fty[u] = ty;
+    fxs[u] = xs;
+    fys[u] = ys;
+    fn2[u] = n2;
+  }
+  const size_t o = b * plane + (size_t)gy * W + gx0;
+  const int n = min(4, W - gx0);
+  const bool vec = p.vec_out && n == 4;
+  store4(otx, o, ftx, vec, n);
+  store4(oty, o, fty, vec, n);
+  store4(oxs, o, fxs, vec, n);
+  store4(oys, o, fys, vec, n);
+  store4(on2, o, fn2, vec, n);
+  if (vec) {
+    *reinterpret_cast<uchar4*>(mask + o) = make_uchar4(fm[0], fm[1], fm[2],
+                                                       fm[3]);
+  } else {
+    for (int u = 0; u < n; ++u) mask[o + u] = fm[u];
   }
 }
 
+// the two instantiations: the default plan, and any plan read at run time
+#define K1_FIXED detect_kernel<true, 7, 2, 2>
+#define K1_RUNTIME detect_kernel<false, MAX_HALO, MAX_HALO, MAX_HALO>
+
 }  // namespace
+
+#ifndef TP_HOST_EMU
+// Allows both instantiations their dynamic shared memory (over 48 KB);
+// called once when the library is loaded, before any launch or capture.
+extern "C" int detect_candidates_init() {
+  cudaError_t e = cudaFuncSetAttribute(
+      K1_FIXED, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_BYTES);
+  if (e == cudaSuccess)
+    e = cudaFuncSetAttribute(
+        K1_RUNTIME, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_BYTES);
+  return (int)e;
+}
+
+// Resident blocks per SM of one instantiation (fixed != 0: the default
+// plan's), from the occupancy calculator.
+extern "C" int detect_candidates_occupancy(int fixed, int* blocks) {
+  return (int)(fixed ? cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+                           blocks, K1_FIXED, NTHREADS, SMEM_BYTES)
+                     : cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+                           blocks, K1_RUNTIME, NTHREADS, SMEM_BYTES));
+}
 
 extern "C" int detect_candidates_launch(
     const float* img, const float* thresh, uint8_t* mask, float* tx,
     float* ty, float* xs, float* ys, float* n2, int B, int H, int W,
     const int* sizes0, int n0, const int* sizes1, int n1, int halo,
     int win_s, float pn_limit, float max_img_value, float dog_thresh,
-    float sum_j2, float win_area, void* stream) {
-  if (halo > MAX_HALO || n0 > MAX_BOXES || n1 > MAX_BOXES || win_s > halo)
-    return (int)cudaErrorInvalidValue;
+    float sum_j2, float win_area, int fixed, void* stream) {
   DetectParams p;
+  const int E = win_s > 1 ? win_s : 1;
+  if (!make_plan(&p.plan, sizes0, n0, sizes1, n1, E, E, win_s, halo))
+    return (int)cudaErrorInvalidValue;
+  if (fixed && !same_plan(p.plan, k1_default_plan()))
+    return (int)cudaErrorInvalidValue;
   p.H = H;
   p.W = W;
-  p.halo = halo;
-  p.n0 = n0;
-  p.n1 = n1;
-  for (int k = 0; k < MAX_BOXES; ++k) {
-    p.sizes0[k] = k < n0 ? sizes0[k] : 1;
-    p.sizes1[k] = k < n1 ? sizes1[k] : 1;
-  }
-  p.win_s = win_s;
+  p.vec_out = W % 4 == 0;
+  p.vec_in = p.vec_out && (uintptr_t)img % 16 == 0;
   p.pn_limit = pn_limit;
   p.max_img_value = max_img_value;
   p.dog_thresh = dog_thresh;
   p.sum_j2 = sum_j2;
   p.win_area = win_area;
-  dim3 block(BLOCK_X, BLOCK_Y);
-  dim3 grid((W + TILE - 1) / TILE, (H + TILE - 1) / TILE, B);
-  detect_kernel<<<grid, block, 0, (cudaStream_t)stream>>>(
-      img, thresh, mask, tx, ty, xs, ys, n2, p);
+  const dim3 block(NX, NS);
+  const dim3 grid((W + OW - 1) / OW, (H + OH - 1) / OH, B);
+  cudaStream_t st = (cudaStream_t)stream;
+  if (fixed)
+    K1_FIXED<<<grid, block, SMEM_BYTES, st>>>(img, thresh, mask, tx, ty, xs,
+                                              ys, n2, p);
+  else
+    K1_RUNTIME<<<grid, block, SMEM_BYTES, st>>>(img, thresh, mask, tx, ty,
+                                                xs, ys, n2, p);
   return (int)cudaGetLastError();
 }
+#endif

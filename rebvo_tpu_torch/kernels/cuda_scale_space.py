@@ -13,13 +13,22 @@ first use) or raises; for a CPU tensor it runs its plain version, which
 repeats the kernel's arithmetic in the Pallas kernels' shift-and-add
 order. There is no fallback from the card to the plain version. Each
 wrapper counts its launches in `.launches`; `WRAPPERS` lists them.
+
+Both kernels run one tile pipeline (`csrc/tile_pipeline.cuh`);
+`launch_plan` is the pure function that picks its instantiation (the
+compiled-in default plan, or the plan read at run time), halo, tile,
+grid and reciprocal tables, and raises for a plan the kernels
+cannot run.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
-from typing import List
+from dataclasses import dataclass
+from typing import List, Sequence, Tuple
+
+import numpy as np
 
 import torch
 import torch.nn.functional as F
@@ -177,22 +186,116 @@ def _batch(img: Tensor) -> int:
     return B
 
 
+# ---------------------------------------------------------------------------
+# Launch plan of the tile pipeline (csrc/tile_pipeline.cuh)
+# ---------------------------------------------------------------------------
+
+TILE = (30, 48)              # output rows, columns of a block (OH, OW)
+BLOCK = (64, 6)              # threads: one per buffer column, row segments
+MAX_HALO = 8                 # the buffers' pad (HP)
+MAX_BOXES = 4                # boxes per chain
+_BUF_FLOATS = (TILE[0] + 2 * MAX_HALO) * (TILE[1] + 2 * MAX_HALO)
+# seven tile buffers, then the row and column reciprocal tables
+SMEM_BYTES = 4 * (7 * _BUF_FLOATS + 2 * MAX_BOXES * (
+    TILE[0] + TILE[1] + 4 * MAX_HALO))
+
+# the plans compiled in as constants: (sizes0, sizes1, win_s) of the
+# default configuration (Sigma0 = 1.7818, KSigma = 1.2599, box_n = 3,
+# DetectorPlaneFitSize = 2)
+FIXED_PLANS = {"detect_candidates": ([3, 3, 5], [3, 5, 5], 2),
+               "build_scale_space": ([3, 3, 5], [3, 5, 5], 0)}
+
+
+@dataclass(frozen=True)
+class LaunchPlan:
+    kernel: str
+    fixed: bool                  # True: the default plan's instantiation
+    halo: int                    # tile halo, <= MAX_HALO
+    radii: Tuple[Tuple[int, ...], Tuple[int, ...]]   # per chain, widths > 1
+    margins: Tuple[int, int]     # pixels past the tile each chain ends at
+    win_s: int
+    tile: Tuple[int, int]
+    grid: Tuple[int, int, int]   # (column tiles, row tiles, batch)
+    recip_sizes: Tuple[Tuple[int, ...], Tuple[int, ...]]   # box widths
+
+
+def _chains(kernel: str, sizes0: Sequence[int], sizes1: Sequence[int],
+            win_s: int):
+    """(win_s, margins, radii, halo) of `kernel`'s two chains."""
+    if kernel not in FIXED_PLANS:
+        raise ValueError(f"unknown kernel {kernel!r}")
+    w = win_s if kernel == "detect_candidates" else 0
+    margins = ((max(w, 1), max(w, 1)) if kernel == "detect_candidates"
+               else (1, 0))
+    radii = tuple(tuple(d // 2 for d in sz if d > 1)
+                  for sz in (sizes0, sizes1))
+    return w, margins, radii, max(m + sum(r) for m, r in zip(margins, radii))
+
+
+def launch_plan(kernel: str, batch: int, H: int, W: int,
+                sizes0: Sequence[int], sizes1: Sequence[int],
+                win_s: int = 0) -> LaunchPlan:
+    """How `kernel` ("detect_candidates" or "build_scale_space") runs
+    the box chains `sizes0` (img0) and `sizes1` (img1) on a [batch, H, W]
+    frame. Each chain's passes shrink the band they cover by their radius
+    down to the chain's margin: K1 needs both chains max(win_s, 1) pixels
+    past the tile (the DoG window, the gradient), K2 img0 one pixel (the
+    gradient) and img1 none. Raises ValueError for more than MAX_BOXES
+    boxes or a halo over MAX_HALO, which the kernels cannot run."""
+    if len(sizes0) > MAX_BOXES or len(sizes1) > MAX_BOXES:
+        raise ValueError(f"launch_plan: at most {MAX_BOXES} boxes per "
+                         f"chain, got {list(sizes0)} and {list(sizes1)}")
+    w, margins, radii, halo = _chains(kernel, sizes0, sizes1, win_s)
+    if halo > MAX_HALO:
+        raise ValueError(f"launch_plan: {kernel} needs a halo of {halo} "
+                         f"pixels, the kernels hold at most {MAX_HALO}")
+    fixed = (list(sizes0), list(sizes1), w) == FIXED_PLANS[kernel]
+    grid = (-(-W // TILE[1]), -(-H // TILE[0]), batch)
+    recip = tuple(tuple(d for d in sz if d > 1) for sz in (sizes0, sizes1))
+    return LaunchPlan(kernel, fixed, halo, radii, margins, w, TILE, grid,
+                      recip)
+
+
+def tile_reciprocals(plan: LaunchPlan, n: int, tile_index: int, d: int,
+                     axis: int = 0) -> np.ndarray:
+    """The reciprocals 1 / (clipped window size) a block's table holds for
+    a box of width d along `axis` (0: rows, 1: columns) of an image n
+    pixels long there, for the pixels [-halo,
+    tile + halo) around tile `tile_index`: one correctly rounded float32
+    division each, as the kernel does (pixels outside the image count 1).
+    Those inside the image equal the plain version's `_inv_count`."""
+    t = plan.tile[axis]
+    g = np.arange(tile_index * t - plan.halo, (tile_index + 1) * t + plan.halo)
+    cnt = np.minimum(g + d // 2 + 1, n) - np.maximum(g - d // 2, 0)
+    return np.float32(1.0) / np.maximum(cnt, 1).astype(np.float32)
+
+
 def detect_halo(sizes0: List[int], sizes1: List[int], win_s: int) -> int:
-    """Tile halo the kernel needs: the DoG window reaches win_s past the
-    output, and the DoG needs both box chains' radii; the gradient needs
-    img0 one pixel out."""
-    r0 = sum(d // 2 for d in sizes0)
-    r1 = sum(d // 2 for d in sizes1)
-    return max(r0 + 1, max(r0, r1) + win_s)
+    """Tile halo K1 needs: the DoG window reaches win_s past the output
+    (the gradient 1), and the DoG needs both box chains' radii."""
+    return _chains("detect_candidates", sizes0, sizes1, win_s)[3]
+
+
+@functools.cache
+def _load(name: str):
+    """`name`'s library, built and loaded at first use, after its init
+    (which grants the kernels their dynamic shared memory) has run."""
+    lib = cuda_build.library(name)
+    init = getattr(lib, f"{name}_init")
+    init.restype = ctypes.c_int
+    err = init()
+    if err != 0:
+        raise RuntimeError(f"{name}_init failed: cudaError {err}")
+    return lib
 
 
 @functools.cache
 def _launcher():
     """The kernel's C entry point, built and loaded at first use."""
-    fn = cuda_build.library("detect_candidates").detect_candidates_launch
+    fn = _load("detect_candidates").detect_candidates_launch
     P, I, Fl = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     fn.argtypes = [P, P, P, P, P, P, P, P, I, I, I, P, I, P, I, I, I,
-                   Fl, Fl, Fl, Fl, Fl, P]
+                   Fl, Fl, Fl, Fl, Fl, I, P]
     fn.restype = ctypes.c_int
     return fn
 
@@ -225,7 +328,7 @@ def detect_candidates_cuda(img: Tensor, grad_thresh, *, sigma0: float,
     B = _batch(img)
     thresh = grad_thresh.expand(batch).contiguous().reshape(B)
     sizes0, sizes1, _, _ = scale_space_plan(sigma0, k_sigma, box_n)
-    halo = detect_halo(sizes0, sizes1, win_s)
+    plan = launch_plan("detect_candidates", B, H, W, sizes0, sizes1, win_s)
 
     mask = torch.empty(img.shape, dtype=torch.bool, device=img.device)
     outs = [torch.empty(img.shape, dtype=torch.float32, device=img.device)
@@ -239,9 +342,9 @@ def detect_candidates_cuda(img: Tensor, grad_thresh, *, sigma0: float,
         stream = torch.cuda.current_stream(img.device).cuda_stream
         err = _launcher()(img.data_ptr(), thresh.data_ptr(), mask.data_ptr(),
                  *[o.data_ptr() for o in outs], B, H, W,
-                 s0, len(sizes0), s1, len(sizes1), halo, win_s,
+                 s0, len(sizes0), s1, len(sizes1), plan.halo, win_s,
                  win_area * per_hist, max_img_value, dog_thresh, sum_j2,
-                 win_area, stream)
+                 win_area, int(plan.fixed), stream)
         if err != 0:
             raise RuntimeError(f"detect_candidates kernel launch failed: "
                                f"cudaError {err}")
@@ -256,17 +359,15 @@ detect_candidates_cuda.launches = 0
 def sspace_halo(sizes0: List[int], sizes1: List[int]) -> int:
     """Tile halo K2 needs: img1 needs the sizes1 chain's radius, img0 the
     sizes0 chain's radius plus one pixel for its gradient."""
-    r0 = sum(d // 2 for d in sizes0)
-    r1 = sum(d // 2 for d in sizes1)
-    return max(r0 + 1, r1)
+    return _chains("build_scale_space", sizes0, sizes1, 0)[3]
 
 
 @functools.cache
 def _sspace_launcher():
     """K2's C entry point, built and loaded at first use."""
-    fn = cuda_build.library("build_scale_space").build_scale_space_launch
+    fn = _load("build_scale_space").build_scale_space_launch
     P, I = ctypes.c_void_p, ctypes.c_int
-    fn.argtypes = [P, P, P, P, P, P, I, I, I, P, I, P, I, I, P]
+    fn.argtypes = [P, P, P, P, P, P, I, I, I, P, I, P, I, I, I, P]
     fn.restype = ctypes.c_int
     return fn
 
@@ -286,6 +387,7 @@ def build_scale_space_cuda(img: Tensor, sigma0: float, k_sigma: float,
     B = _batch(img)
     H, W = img.shape[-2:]
     sizes0, sizes1, _, _ = scale_space_plan(sigma0, k_sigma, box_n)
+    plan = launch_plan("build_scale_space", B, H, W, sizes0, sizes1)
     outs = [torch.empty(img.shape, dtype=torch.float32, device=img.device)
             for _ in range(5)]
     if B > 0 and H > 0 and W > 0:
@@ -294,7 +396,7 @@ def build_scale_space_cuda(img: Tensor, sigma0: float, k_sigma: float,
             img.data_ptr(), *[o.data_ptr() for o in outs], B, H, W,
             (ctypes.c_int * len(sizes0))(*sizes0), len(sizes0),
             (ctypes.c_int * len(sizes1))(*sizes1), len(sizes1),
-            sspace_halo(sizes0, sizes1), stream)
+            plan.halo, int(plan.fixed), stream)
         if err != 0:
             raise RuntimeError(f"build_scale_space kernel launch failed: "
                                f"cudaError {err}")
@@ -303,6 +405,19 @@ def build_scale_space_cuda(img: Tensor, sigma0: float, k_sigma: float,
 
 
 build_scale_space_cuda.launches = 0
+
+def blocks_per_sm(kernel: str, fixed: bool) -> int:
+    """Resident blocks per SM of `kernel`'s instantiation (the default
+    plan's if `fixed`), from CUDA's occupancy calculator; needs the card."""
+    fn = getattr(_load(kernel), f"{kernel}_occupancy")
+    fn.argtypes = [ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
+    fn.restype = ctypes.c_int
+    n = ctypes.c_int(0)
+    err = fn(ctypes.c_int(int(fixed)), ctypes.byref(n))
+    if err != 0:
+        raise RuntimeError(f"{kernel}_occupancy failed: cudaError {err}")
+    return n.value
+
 
 # every kernel wrapper of this module (each counts its launches)
 WRAPPERS = (detect_candidates_cuda, build_scale_space_cuda)
