@@ -30,7 +30,8 @@ Phases, each printing one JSON line; any failure exits non-zero:
                 JSON line is printed as it is);
   9. kernels  — the kernel list.
 Each path (phases 4, 4b, 6, 6b, 8) starts with every kernel's launch
-count at 0 and reports the counts it ends with. Then the nvidia-smi line,
+count at 0 and reports the counts it ends with. Each phase line carries
+`elapsed_s`, the seconds since the script started. Then the nvidia-smi line,
 and last {"ok": true, "device": {...}}. Longer artefacts go to
 chiprun_out/smoke/.
 """
@@ -61,6 +62,7 @@ from rebvo_tpu_torch.kernels.scale_space import (build_scale_space,
 # published peaks of one H100 against which every bound here is stated
 from rebvo_tpu_torch.profiling import H100_F32_FLOPS, H100_MEM_BYTES_PER_S
 
+T_START = time.perf_counter()
 OUT = os.path.join("chiprun_out", "smoke")
 N_FRAMES = 60
 N_PROFILE = 6
@@ -77,6 +79,10 @@ K2_PLANS = (1.2, 2.4)
 
 
 def emit(obj):
+    """Print `obj` as one JSON line (a phase line gains `elapsed_s`, the
+    seconds since the script started) and append it to lines.jsonl."""
+    if "phase" in obj:
+        obj = {**obj, "elapsed_s": time.perf_counter() - T_START}
     line = json.dumps(obj)
     print(line, flush=True)
     with open(os.path.join(OUT, "lines.jsonl"), "a") as fh:
@@ -237,13 +243,15 @@ def ptxas_resources(log):
 
 
 def kernel_resources(name, log):
-    """ptxas resources, dynamic shared bytes and resident blocks per SM of
-    both instantiations of kernel `name`."""
+    """ptxas resources of both instantiations of kernel `name`, the
+    dynamic shared bytes and threads per block its launcher passes (read
+    from its library), and the resident blocks per SM at those."""
     res = ptxas_resources(log)
+    smem, threads = cs.launch_config(name)
     for inst, r in res.items():
-        r["dynamic_smem_bytes"] = cs.SMEM_BYTES
+        r["dynamic_smem_bytes"] = smem
+        r["threads_per_block"] = threads
         r["blocks_per_sm"] = cs.blocks_per_sm(name, inst == "fixed")
-        r["threads_per_block"] = cs.BLOCK[0] * cs.BLOCK[1]
     return res
 
 

@@ -49,8 +49,7 @@ sspace_kernel(const float* __restrict__ img, float* __restrict__ o0,
               float* __restrict__ o1, float* __restrict__ odog,
               float* __restrict__ odx, float* __restrict__ ody,
               const SSpaceParams p) {
-  extern __shared__ float4 smem4[];
-  const Smem s = carve(reinterpret_cast<float*>(smem4));
+  const Smem s = carve(dynamic_smem());
   const Plan pl = FIXED ? k2_default_plan() : p.plan;
   constexpr int SEG = (OH + 2 * HALO + NS - 1) / NS;
   const int H = p.H, W = p.W;
@@ -122,36 +121,47 @@ extern "C" int build_scale_space_init() {
 }
 
 // Resident blocks per SM of one instantiation (fixed != 0: the default
-// plan's), from the occupancy calculator.
+// plan's) at the launcher's block and shared memory, from the occupancy
+// calculator.
 extern "C" int build_scale_space_occupancy(int fixed, int* blocks) {
+  const dim3 b = launch_block();
+  const int threads = b.x * b.y * b.z;
   return (int)(fixed ? cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-                           blocks, K2_FIXED, NTHREADS, SMEM_BYTES)
+                           blocks, K2_FIXED, threads, SMEM_BYTES)
                      : cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-                           blocks, K2_RUNTIME, NTHREADS, SMEM_BYTES));
+                           blocks, K2_RUNTIME, threads, SMEM_BYTES));
+}
+#endif
+
+// The dynamic shared bytes and threads per block the launcher passes.
+extern "C" void build_scale_space_launch_config(int* smem_bytes,
+                                                int* threads) {
+  const dim3 b = launch_block();
+  *smem_bytes = SMEM_BYTES;
+  *threads = b.x * b.y * b.z;
 }
 
+// Launches K2 on a [B, H, W] frame batch with the plan and the gx x gy
+// tile grid of kernels/cuda_scale_space.launch_plan (halo, margins e0 of
+// img0 and e1 of img1, chain c's n_c radii r_c, fixed != 0 for the default
+// plan's instantiation), checked, not recomputed: cudaErrorInvalidValue if
+// the kernel cannot run them.
 extern "C" int build_scale_space_launch(
     const float* img, float* img0, float* img1, float* dog, float* dx,
-    float* dy, int B, int H, int W, const int* sizes0, int n0,
-    const int* sizes1, int n1, int halo, int fixed, void* stream) {
+    float* dy, int B, int H, int W, int gx, int gy, int halo, int e0, int e1,
+    const int* r0, int n0, const int* r1, int n1, int fixed, void* stream) {
   SSpaceParams p;
-  if (!make_plan(&p.plan, sizes0, n0, sizes1, n1, 1, 0, 0, halo))
-    return (int)cudaErrorInvalidValue;
-  if (fixed && !same_plan(p.plan, k2_default_plan()))
+  if (!plan_from_args(&p.plan, halo, 0, e0, e1, r0, n0, r1, n1) || e0 < 1 ||
+      !grid_covers(gx, gy, H, W) ||
+      (fixed && !same_plan(p.plan, k2_default_plan())))
     return (int)cudaErrorInvalidValue;
   p.H = H;
   p.W = W;
   p.vec_out = W % 4 == 0;
   p.vec_in = p.vec_out && (uintptr_t)img % 16 == 0;
-  const dim3 block(NX, NS);
-  const dim3 grid((W + OW - 1) / OW, (H + OH - 1) / OH, B);
+  const dim3 grid(gx, gy, B);
   cudaStream_t st = (cudaStream_t)stream;
-  if (fixed)
-    K2_FIXED<<<grid, block, SMEM_BYTES, st>>>(img, img0, img1, dog, dx, dy,
-                                              p);
-  else
-    K2_RUNTIME<<<grid, block, SMEM_BYTES, st>>>(img, img0, img1, dog, dx,
-                                                dy, p);
-  return (int)cudaGetLastError();
+  return (int)launch_kernel(fixed ? K2_FIXED : K2_RUNTIME, grid,
+                            launch_block(), SMEM_BYTES, st, img, img0, img1,
+                            dog, dx, dy, p);
 }
-#endif

@@ -29,8 +29,9 @@
 // over only the band later passes read, reciprocal tables instead of
 // per-cell divisions, 16-byte loads and stores; 5 barriers in all.
 //
-// Detector part, after the chains: phase P writes the DoG, its sign and
-// img0 over a band of w pixels (at least 1) around the tile; the output
+// Detector part, after the chains: phase P writes img0 over a band of
+// max(w, 1) pixels around the tile (the gradient reads 1), the DoG and its
+// sign over a band of w pixels (the plane-fit window's reach); the output
 // phase gives a thread 4 adjacent pixels of one row. It walks the 2w+1
 // window rows in the reference's order (0, +1, -1, +2, -2, ...), each row
 // float4 loads of the DoG and the sign, and keeps in registers the
@@ -79,8 +80,7 @@ detect_kernel(const float* __restrict__ img, const float* __restrict__ thresh,
               float* __restrict__ oty, float* __restrict__ oxs,
               float* __restrict__ oys, float* __restrict__ on2,
               const DetectParams p) {
-  extern __shared__ float4 smem4[];
-  const Smem s = carve(reinterpret_cast<float*>(smem4));
+  const Smem s = carve(dynamic_smem());
   const Plan pl = FIXED ? k1_default_plan() : p.plan;
   constexpr int SEG = (OH + 2 * HALO + NS - 1) / NS;
   const int H = p.H, W = p.W;
@@ -92,32 +92,36 @@ detect_kernel(const float* __restrict__ img, const float* __restrict__ thresh,
   load_tile(s, pl, img + b * plane, p.vec_in, oy0, ox0, H, W);
   chain_phases<SEG, MAXR, FIXED ? MAX_BOXES : 1>(s, pl, oy0, ox0, H, W);
 
-  // phase P: DoG (outa), img0 (outb) and the DoG's sign (+-1 inside the
-  // image, 0 outside, into a vertical-sum buffer no chain reads now) over
-  // [-E, OH + E), E = max(w, 1)
+  // phase P: img0 (outb) over [-E0, OH + E0), E0 = max(w, 1); the DoG
+  // (outa) and its sign (+-1 inside the image, 0 outside, into a
+  // vertical-sum buffer no chain reads now) over [-E1, OH + E1), E1 = w
   float* const sgn = tbuf(s, 0, plan_phases(pl) & 1);
   {
     const int kap = (int)threadIdx.x - HP;
-    const int E = pl.E[0];
-    if (kap >= -E && kap < OW + E) {
+    const int E0 = pl.E[0], E1 = pl.E[1];
+    if (kap >= -E0 && kap < OW + E0) {
       int rho0;
-      const int sl = segment(E, &rho0);
+      const int sl = segment(E0, &rho0);
       const float ic0 = col_recip(s, 0, pl.n[0], kap);
       const float ic1 = col_recip(s, 1, pl.n[1], kap);
+      const bool col1 = kap >= -E1 && kap < OW + E1;
 #pragma unroll
       for (int t = 0; t < SEG; ++t) {
         if (t < sl) {
           const int rho = rho0 + t;
           const float a0 = chain_value<MAXR>(s, pl, 0, pl.n[0], rho, kap, ic0,
                                              oy0, ox0, H, W);
-          const float a1 = chain_value<MAXR>(s, pl, 1, pl.n[1], rho, kap, ic1,
-                                             oy0, ox0, H, W);
           const int i = (rho + HP) * NX + threadIdx.x;
-          const float dog = __fsub_rn(a1, a0);
-          s.outa[i] = dog;
           s.outb[i] = a0;
-          sgn[i] = inside(oy0 + rho, ox0 + kap, H, W)
-                       ? (dog > 0.f ? 1.f : -1.f) : 0.f;
+          // the launcher checks E1 <= E0; equal under the default plan
+          if (E1 >= E0 || (col1 && rho >= -E1 && rho < OH + E1)) {
+            const float a1 = chain_value<MAXR>(s, pl, 1, pl.n[1], rho, kap,
+                                               ic1, oy0, ox0, H, W);
+            const float dog = __fsub_rn(a1, a0);
+            s.outa[i] = dog;
+            sgn[i] = inside(oy0 + rho, ox0 + kap, H, W)
+                         ? (dog > 0.f ? 1.f : -1.f) : 0.f;
+          }
         }
       }
     }
@@ -264,25 +268,43 @@ extern "C" int detect_candidates_init() {
 }
 
 // Resident blocks per SM of one instantiation (fixed != 0: the default
-// plan's), from the occupancy calculator.
+// plan's) at the launcher's block and shared memory, from the occupancy
+// calculator.
 extern "C" int detect_candidates_occupancy(int fixed, int* blocks) {
+  const dim3 b = launch_block();
+  const int threads = b.x * b.y * b.z;
   return (int)(fixed ? cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-                           blocks, K1_FIXED, NTHREADS, SMEM_BYTES)
+                           blocks, K1_FIXED, threads, SMEM_BYTES)
                      : cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-                           blocks, K1_RUNTIME, NTHREADS, SMEM_BYTES));
+                           blocks, K1_RUNTIME, threads, SMEM_BYTES));
+}
+#endif
+
+// The dynamic shared bytes and threads per block the launcher passes.
+extern "C" void detect_candidates_launch_config(int* smem_bytes,
+                                                int* threads) {
+  const dim3 b = launch_block();
+  *smem_bytes = SMEM_BYTES;
+  *threads = b.x * b.y * b.z;
 }
 
+// Launches K1 on a [B, H, W] frame batch with the plan and the gx x gy
+// tile grid of kernels/cuda_scale_space.launch_plan: halo, half window
+// win_s, margins e0 (img0) and e1 (the DoG), chain c's n_c radii r_c, and
+// fixed != 0 for the default plan's instantiation. The plan and the grid
+// are checked, not recomputed: cudaErrorInvalidValue if the kernel cannot
+// run them.
 extern "C" int detect_candidates_launch(
     const float* img, const float* thresh, uint8_t* mask, float* tx,
-    float* ty, float* xs, float* ys, float* n2, int B, int H, int W,
-    const int* sizes0, int n0, const int* sizes1, int n1, int halo,
-    int win_s, float pn_limit, float max_img_value, float dog_thresh,
-    float sum_j2, float win_area, int fixed, void* stream) {
+    float* ty, float* xs, float* ys, float* n2, int B, int H, int W, int gx,
+    int gy, int halo, int win_s, int e0, int e1, const int* r0, int n0,
+    const int* r1, int n1, int fixed, float pn_limit, float max_img_value,
+    float dog_thresh, float sum_j2, float win_area, void* stream) {
   DetectParams p;
-  const int E = win_s > 1 ? win_s : 1;
-  if (!make_plan(&p.plan, sizes0, n0, sizes1, n1, E, E, win_s, halo))
-    return (int)cudaErrorInvalidValue;
-  if (fixed && !same_plan(p.plan, k1_default_plan()))
+  if (!plan_from_args(&p.plan, halo, win_s, e0, e1, r0, n0, r1, n1) ||
+      e0 < (win_s > 1 ? win_s : 1) || e1 < win_s || e1 > e0 ||
+      !grid_covers(gx, gy, H, W) ||
+      (fixed && !same_plan(p.plan, k1_default_plan())))
     return (int)cudaErrorInvalidValue;
   p.H = H;
   p.W = W;
@@ -293,15 +315,9 @@ extern "C" int detect_candidates_launch(
   p.dog_thresh = dog_thresh;
   p.sum_j2 = sum_j2;
   p.win_area = win_area;
-  const dim3 block(NX, NS);
-  const dim3 grid((W + OW - 1) / OW, (H + OH - 1) / OH, B);
+  const dim3 grid(gx, gy, B);
   cudaStream_t st = (cudaStream_t)stream;
-  if (fixed)
-    K1_FIXED<<<grid, block, SMEM_BYTES, st>>>(img, thresh, mask, tx, ty, xs,
-                                              ys, n2, p);
-  else
-    K1_RUNTIME<<<grid, block, SMEM_BYTES, st>>>(img, thresh, mask, tx, ty,
-                                                xs, ys, n2, p);
-  return (int)cudaGetLastError();
+  return (int)launch_kernel(fixed ? K1_FIXED : K1_RUNTIME, grid,
+                            launch_block(), SMEM_BYTES, st, img, thresh,
+                            mask, tx, ty, xs, ys, n2, p);
 }
-#endif

@@ -38,14 +38,21 @@
 // The plan (radii, margins) is either a compile-time constant (the default
 // plans, so every loop unrolls and every branch folds) or read at run time
 // (any plan with halo <= 8 and at most 4 boxes per chain); both are
-// instances of the same templates.
+// instances of the same templates. The launchers take the plan and the grid
+// that kernels/cuda_scale_space.launch_plan computed and only check them.
+//
+// The CUDA-only pieces (the shared-memory base, cp.async, the launch) sit
+// under #ifndef TP_HOST_EMU. tests/cuda_host_emu.h defines that macro and
+// host versions of them, so that tests/test_torch_tile_host.py runs these
+// kernels on the CPU, one std::thread per CUDA thread.
 
 #pragma once
 
+#include <stddef.h>
+#include <stdint.h>
 #ifndef TP_HOST_EMU
 #include <cuda_runtime.h>
 #endif
-#include <stdint.h>
 
 namespace tp {
 
@@ -92,26 +99,36 @@ __host__ __device__ constexpr int plan_margin(const Plan& pl, int c, int j) {
   return e;
 }
 
-// Builds a plan from box sizes (widths <= 1 are skipped); returns false if
-// the kernels cannot run it.
-inline bool make_plan(Plan* pl, const int* sizes0, int n0, const int* sizes1,
-                      int n1, int E0, int E1, int w, int halo) {
-  if (n0 > MAX_BOXES || n1 > MAX_BOXES || halo > MAX_HALO || halo < 0 ||
-      w < 0 || w > MAX_HALO)
+// Fills a plan from the launch plan's numbers (chain c's radii r_c[0..n_c),
+// margins E0, E1, half window w, halo); returns false if the kernels cannot
+// run it: more than MAX_BOXES passes, a radius or margin out of range, or a
+// chain reaching past the halo.
+inline bool plan_from_args(Plan* pl, int halo, int w, int E0, int E1,
+                           const int* r0, int n0, const int* r1, int n1) {
+  if (n0 < 0 || n0 > MAX_BOXES || n1 < 0 || n1 > MAX_BOXES || halo < 0 ||
+      halo > MAX_HALO || w < 0 || w > MAX_HALO || E0 < 0 || E1 < 0)
     return false;
-  const int* sz[2] = {sizes0, sizes1};
+  const int* rr[2] = {r0, r1};
   const int nn[2] = {n0, n1};
   for (int c = 0; c < 2; ++c) {
-    pl->n[c] = 0;
-    for (int k = 0; k < MAX_BOXES; ++k) pl->r[c][k] = 0;
-    for (int k = 0; k < nn[c]; ++k)
-      if (sz[c][k] > 1) pl->r[c][pl->n[c]++] = sz[c][k] / 2;
+    pl->n[c] = nn[c];
+    for (int k = 0; k < MAX_BOXES; ++k) {
+      pl->r[c][k] = k < nn[c] ? rr[c][k] : 0;
+      if (k < nn[c] && (pl->r[c][k] < 1 || pl->r[c][k] > MAX_HALO))
+        return false;
+    }
   }
   pl->E[0] = E0;
   pl->E[1] = E1;
   pl->w = w;
   pl->halo = halo;
   return plan_margin(*pl, 0, 0) <= halo && plan_margin(*pl, 1, 0) <= halo;
+}
+
+// True if a grid of gx x gy tiles covers an H x W frame, each tile once.
+inline bool grid_covers(int gx, int gy, int H, int W) {
+  return gx >= 1 && gy >= 1 && (gx - 1) * OW < W && W <= gx * OW &&
+         (gy - 1) * OH < H && H <= gy * OH;
 }
 
 inline bool same_plan(const Plan& a, const Plan& b) {
@@ -157,7 +174,30 @@ __device__ __forceinline__ int clipped_count(int g, int r, int n) {
   return c > 0 ? c : 1;   // only cells outside the image give c <= 0
 }
 
+// Entry i of the reciprocal tables of the block whose tile starts at
+// (oy0, ox0): [chain][pass][buffer row], then [chain][pass][buffer column]
+// (see Smem). False if pass j of chain c does not exist: no entry.
+__device__ __forceinline__ bool recip_entry(const Plan& pl, int i, int oy0,
+                                            int ox0, int H, int W, float* v) {
+  const bool row = i < N_INV_ROWS;
+  const int n = row ? BR : NX;
+  const int k = row ? i : i - N_INV_ROWS;
+  const int cj = k / n;
+  const int c = cj / MAX_BOXES;
+  const int j = cj % MAX_BOXES;
+  if (j >= pl.n[c]) return false;
+  const int g = (row ? oy0 : ox0) - HP + k % n;
+  *v = __fdiv_rn(1.f, (float)clipped_count(g, pl.r[c][j], row ? H : W));
+  return true;
+}
+
 #ifndef TP_HOST_EMU
+// The block's dynamic shared memory.
+__device__ __forceinline__ float* dynamic_smem() {
+  extern __shared__ float4 smem4[];
+  return reinterpret_cast<float*>(smem4);
+}
+
 __device__ __forceinline__ void cp_async16(float* smem, const float* gmem) {
   const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
@@ -168,12 +208,20 @@ __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.commit_group;\ncp.async.wait_group 0;\n" ::
                    : "memory");
 }
-#else
-inline void cp_async16(float* smem, const float* gmem) {
-  for (int i = 0; i < 4; ++i) smem[i] = gmem[i];
+
+// Launches kernel k on `grid` with `block` threads and `smem_bytes` of
+// dynamic shared memory (the launchers pass launch_block(), SMEM_BYTES).
+template <typename... P, typename... A>
+inline cudaError_t launch_kernel(void (*k)(P...), dim3 grid, dim3 block,
+                                 size_t smem_bytes, cudaStream_t st,
+                                 A... args) {
+  k<<<grid, block, smem_bytes, st>>>(args...);
+  return cudaGetLastError();
 }
-inline void cp_async_wait_all() {}
 #endif
+
+// The block every tile kernel is launched with.
+inline dim3 launch_block() { return dim3(NX, NS); }
 
 // Loads rows [-halo, OH + halo) of the tile (all NX columns) into s.img
 // and, while the copies are in flight, builds the row and column
@@ -211,17 +259,8 @@ __device__ __forceinline__ void load_tile(const Smem& s, const Plan& pl,
   // 1 / (clipped window rows), then 1 / (clipped window columns), of
   // every pass of both chains
   for (int i = tid; i < N_INV; i += NTHREADS) {
-    const bool row = i < N_INV_ROWS;
-    const int n = row ? BR : NX;
-    const int k = row ? i : i - N_INV_ROWS;
-    const int cj = k / n;
-    const int c = cj / MAX_BOXES;
-    const int j = cj % MAX_BOXES;
-    if (j < pl.n[c]) {
-      const int g = (row ? oy0 : ox0) - HP + k % n;
-      const int cnt = clipped_count(g, pl.r[c][j], row ? H : W);
-      s.inv[i] = __fdiv_rn(1.f, (float)cnt);
-    }
+    float v;
+    if (recip_entry(pl, i, oy0, ox0, H, W, &v)) s.inv[i] = v;
   }
   if (vec_in) cp_async_wait_all();
   __syncthreads();

@@ -16,9 +16,9 @@ wrapper counts its launches in `.launches`; `WRAPPERS` lists them.
 
 Both kernels run one tile pipeline (`csrc/tile_pipeline.cuh`);
 `launch_plan` is the pure function that picks its instantiation (the
-compiled-in default plan, or the plan read at run time), halo, tile,
-grid and reciprocal tables, and raises for a plan the kernels
-cannot run.
+compiled-in default plan, or the plan read at run time), halo, radii,
+margins and grid, and raises for a plan the kernels cannot run. The C
+launchers take that plan and grid and only check them.
 """
 
 from __future__ import annotations
@@ -26,9 +26,7 @@ from __future__ import annotations
 import ctypes
 import functools
 from dataclasses import dataclass
-from typing import List, Sequence, Tuple
-
-import numpy as np
+from typing import Callable, List, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -190,14 +188,11 @@ def _batch(img: Tensor) -> int:
 # Launch plan of the tile pipeline (csrc/tile_pipeline.cuh)
 # ---------------------------------------------------------------------------
 
+# The C launchers check a plan and a grid against these (OH, OW, HP,
+# MAX_BOXES of tile_pipeline.cuh) and refuse what does not fit.
 TILE = (30, 48)              # output rows, columns of a block (OH, OW)
-BLOCK = (64, 6)              # threads: one per buffer column, row segments
 MAX_HALO = 8                 # the buffers' pad (HP)
 MAX_BOXES = 4                # boxes per chain
-_BUF_FLOATS = (TILE[0] + 2 * MAX_HALO) * (TILE[1] + 2 * MAX_HALO)
-# seven tile buffers, then the row and column reciprocal tables
-SMEM_BYTES = 4 * (7 * _BUF_FLOATS + 2 * MAX_BOXES * (
-    TILE[0] + TILE[1] + 4 * MAX_HALO))
 
 # the plans compiled in as constants: (sizes0, sizes1, win_s) of the
 # default configuration (Sigma0 = 1.7818, KSigma = 1.2599, box_n = 3,
@@ -216,7 +211,15 @@ class LaunchPlan:
     win_s: int
     tile: Tuple[int, int]
     grid: Tuple[int, int, int]   # (column tiles, row tiles, batch)
-    recip_sizes: Tuple[Tuple[int, ...], Tuple[int, ...]]   # box widths
+
+    def c_args(self) -> list:
+        """The plan as the C launchers take it: gx, gy, halo, [win_s,]
+        e0, e1, r0, n0, r1, n1, fixed."""
+        r0, r1 = ((ctypes.c_int * len(r))(*r) for r in self.radii)
+        w = [self.win_s] if self.kernel == "detect_candidates" else []
+        return [*self.grid[:2], self.halo, *w, *self.margins,
+                r0, len(self.radii[0]), r1, len(self.radii[1]),
+                int(self.fixed)]
 
 
 def _chains(kernel: str, sizes0: Sequence[int], sizes1: Sequence[int],
@@ -225,7 +228,7 @@ def _chains(kernel: str, sizes0: Sequence[int], sizes1: Sequence[int],
     if kernel not in FIXED_PLANS:
         raise ValueError(f"unknown kernel {kernel!r}")
     w = win_s if kernel == "detect_candidates" else 0
-    margins = ((max(w, 1), max(w, 1)) if kernel == "detect_candidates"
+    margins = ((max(w, 1), w) if kernel == "detect_candidates"
                else (1, 0))
     radii = tuple(tuple(d // 2 for d in sz if d > 1)
                   for sz in (sizes0, sizes1))
@@ -238,10 +241,11 @@ def launch_plan(kernel: str, batch: int, H: int, W: int,
     """How `kernel` ("detect_candidates" or "build_scale_space") runs
     the box chains `sizes0` (img0) and `sizes1` (img1) on a [batch, H, W]
     frame. Each chain's passes shrink the band they cover by their radius
-    down to the chain's margin: K1 needs both chains max(win_s, 1) pixels
-    past the tile (the DoG window, the gradient), K2 img0 one pixel (the
-    gradient) and img1 none. Raises ValueError for more than MAX_BOXES
-    boxes or a halo over MAX_HALO, which the kernels cannot run."""
+    down to the chain's margin: K1 needs img0 max(win_s, 1) pixels past
+    the tile (the DoG window, the gradient) and img1 win_s (the DoG
+    window), K2 img0 one pixel (the gradient) and img1 none. Raises
+    ValueError for more than MAX_BOXES boxes or a halo over MAX_HALO,
+    which the kernels cannot run."""
     if len(sizes0) > MAX_BOXES or len(sizes1) > MAX_BOXES:
         raise ValueError(f"launch_plan: at most {MAX_BOXES} boxes per "
                          f"chain, got {list(sizes0)} and {list(sizes1)}")
@@ -251,23 +255,7 @@ def launch_plan(kernel: str, batch: int, H: int, W: int,
                          f"pixels, the kernels hold at most {MAX_HALO}")
     fixed = (list(sizes0), list(sizes1), w) == FIXED_PLANS[kernel]
     grid = (-(-W // TILE[1]), -(-H // TILE[0]), batch)
-    recip = tuple(tuple(d for d in sz if d > 1) for sz in (sizes0, sizes1))
-    return LaunchPlan(kernel, fixed, halo, radii, margins, w, TILE, grid,
-                      recip)
-
-
-def tile_reciprocals(plan: LaunchPlan, n: int, tile_index: int, d: int,
-                     axis: int = 0) -> np.ndarray:
-    """The reciprocals 1 / (clipped window size) a block's table holds for
-    a box of width d along `axis` (0: rows, 1: columns) of an image n
-    pixels long there, for the pixels [-halo,
-    tile + halo) around tile `tile_index`: one correctly rounded float32
-    division each, as the kernel does (pixels outside the image count 1).
-    Those inside the image equal the plain version's `_inv_count`."""
-    t = plan.tile[axis]
-    g = np.arange(tile_index * t - plan.halo, (tile_index + 1) * t + plan.halo)
-    cnt = np.minimum(g + d // 2 + 1, n) - np.maximum(g - d // 2, 0)
-    return np.float32(1.0) / np.maximum(cnt, 1).astype(np.float32)
+    return LaunchPlan(kernel, fixed, halo, radii, margins, w, TILE, grid)
 
 
 def detect_halo(sizes0: List[int], sizes1: List[int], win_s: int) -> int:
@@ -289,15 +277,56 @@ def _load(name: str):
     return lib
 
 
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+# detect_candidates_launch: img, thresh, mask, 5 maps; B, H, W; the plan
+# (LaunchPlan.c_args); pn_limit, max_img_value, dog_thresh, sum_j2,
+# win_area; stream
+K1_ARGTYPES = ([_P] * 8 + [_I] * 3 + [_I] * 6 + [_P, _I, _P, _I, _I] +
+               [_F] * 5 + [_P])
+# build_scale_space_launch: img, 5 maps; B, H, W; the plan; stream
+K2_ARGTYPES = [_P] * 6 + [_I] * 3 + [_I] * 5 + [_P, _I, _P, _I, _I] + [_P]
+
+
 @functools.cache
 def _launcher():
     """The kernel's C entry point, built and loaded at first use."""
     fn = _load("detect_candidates").detect_candidates_launch
-    P, I, Fl = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    fn.argtypes = [P, P, P, P, P, P, P, P, I, I, I, P, I, P, I, I, I,
-                   Fl, Fl, Fl, Fl, Fl, I, P]
+    fn.argtypes = K1_ARGTYPES
     fn.restype = ctypes.c_int
     return fn
+
+
+def detect_launch(launch: Callable[..., int], img: Tensor, grad_thresh: Tensor,
+                  stream, *, sigma0: float, k_sigma: float, box_n: int = 3,
+                  win_s: int, per_hist: float, dog_thresh: float,
+                  max_img_value: float) -> EdgeCandidates:
+    """K1 on `img` through the C entry point `launch` (argument types
+    K1_ARGTYPES): the launch plan, the outputs, the launch. Returns the
+    candidates; raises if the launcher refuses. `detect_candidates_cuda`
+    passes the card's entry point; the tests a host build of the same
+    source."""
+    batch = img.shape[:-2]
+    H, W = img.shape[-2:]
+    B = _batch(img)
+    thresh = grad_thresh.expand(batch).contiguous().reshape(B)
+    sizes0, sizes1, _, _ = scale_space_plan(sigma0, k_sigma, box_n)
+    plan = launch_plan("detect_candidates", B, H, W, sizes0, sizes1, win_s)
+    mask = torch.empty(img.shape, dtype=torch.bool, device=img.device)
+    outs = [torch.empty(img.shape, dtype=torch.float32, device=img.device)
+            for _ in range(5)]
+    win_area = float((2 * win_s + 1) ** 2)
+    sum_j2 = float((2 * win_s + 1) *
+                   sum(j * j for j in range(-win_s, win_s + 1)))
+    if B > 0 and H > 0 and W > 0:
+        err = launch(img.data_ptr(), thresh.data_ptr(), mask.data_ptr(),
+                     *[o.data_ptr() for o in outs], B, H, W, *plan.c_args(),
+                     win_area * per_hist, max_img_value, dog_thresh, sum_j2,
+                     win_area, stream)
+        if err != 0:
+            raise RuntimeError(f"detect_candidates kernel launch failed: "
+                               f"cudaError {err}")
+    return EdgeCandidates(mask=mask, theta_x=outs[0], theta_y=outs[1],
+                          xs=outs[2], ys=outs[3], n2_m=outs[4])
 
 
 def detect_candidates_cuda(img: Tensor, grad_thresh, *, sigma0: float,
@@ -323,34 +352,14 @@ def detect_candidates_cuda(img: Tensor, grad_thresh, *, sigma0: float,
             and grad_thresh.dtype == torch.float32):
         raise TypeError("detect_candidates_cuda: grad_thresh must be a "
                         "float32 tensor on the image's device")
-    batch = img.shape[:-2]
-    H, W = img.shape[-2:]
-    B = _batch(img)
-    thresh = grad_thresh.expand(batch).contiguous().reshape(B)
-    sizes0, sizes1, _, _ = scale_space_plan(sigma0, k_sigma, box_n)
-    plan = launch_plan("detect_candidates", B, H, W, sizes0, sizes1, win_s)
-
-    mask = torch.empty(img.shape, dtype=torch.bool, device=img.device)
-    outs = [torch.empty(img.shape, dtype=torch.float32, device=img.device)
-            for _ in range(5)]
-    s0 = (ctypes.c_int * len(sizes0))(*sizes0)
-    s1 = (ctypes.c_int * len(sizes1))(*sizes1)
-    win_area = float((2 * win_s + 1) ** 2)
-    sum_j2 = float((2 * win_s + 1) *
-                   sum(j * j for j in range(-win_s, win_s + 1)))
-    if B > 0 and H > 0 and W > 0:
-        stream = torch.cuda.current_stream(img.device).cuda_stream
-        err = _launcher()(img.data_ptr(), thresh.data_ptr(), mask.data_ptr(),
-                 *[o.data_ptr() for o in outs], B, H, W,
-                 s0, len(sizes0), s1, len(sizes1), plan.halo, win_s,
-                 win_area * per_hist, max_img_value, dog_thresh, sum_j2,
-                 win_area, int(plan.fixed), stream)
-        if err != 0:
-            raise RuntimeError(f"detect_candidates kernel launch failed: "
-                               f"cudaError {err}")
+    cand = detect_launch(
+        _launcher(), img, grad_thresh,
+        torch.cuda.current_stream(img.device).cuda_stream, sigma0=sigma0,
+        k_sigma=k_sigma, box_n=box_n, win_s=win_s, per_hist=per_hist,
+        dog_thresh=dog_thresh, max_img_value=max_img_value)
+    if img.numel() > 0:
         detect_candidates_cuda.launches += 1
-    return EdgeCandidates(mask=mask, theta_x=outs[0], theta_y=outs[1],
-                          xs=outs[2], ys=outs[3], n2_m=outs[4])
+    return cand
 
 
 detect_candidates_cuda.launches = 0
@@ -366,10 +375,29 @@ def sspace_halo(sizes0: List[int], sizes1: List[int]) -> int:
 def _sspace_launcher():
     """K2's C entry point, built and loaded at first use."""
     fn = _load("build_scale_space").build_scale_space_launch
-    P, I = ctypes.c_void_p, ctypes.c_int
-    fn.argtypes = [P, P, P, P, P, P, I, I, I, P, I, P, I, I, I, P]
+    fn.argtypes = K2_ARGTYPES
     fn.restype = ctypes.c_int
     return fn
+
+
+def sspace_launch(launch: Callable[..., int], img: Tensor, stream,
+                  sigma0: float, k_sigma: float,
+                  box_n: int = 3) -> ScaleSpace:
+    """K2 on `img` through the C entry point `launch` (argument types
+    K2_ARGTYPES), as `detect_launch` for K1."""
+    B = _batch(img)
+    H, W = img.shape[-2:]
+    sizes0, sizes1, _, _ = scale_space_plan(sigma0, k_sigma, box_n)
+    plan = launch_plan("build_scale_space", B, H, W, sizes0, sizes1)
+    outs = [torch.empty(img.shape, dtype=torch.float32, device=img.device)
+            for _ in range(5)]
+    if B > 0 and H > 0 and W > 0:
+        err = launch(img.data_ptr(), *[o.data_ptr() for o in outs], B, H, W,
+                     *plan.c_args(), stream)
+        if err != 0:
+            raise RuntimeError(f"build_scale_space kernel launch failed: "
+                               f"cudaError {err}")
+    return ScaleSpace(*outs)
 
 
 def build_scale_space_cuda(img: Tensor, sigma0: float, k_sigma: float,
@@ -384,27 +412,27 @@ def build_scale_space_cuda(img: Tensor, sigma0: float, k_sigma: float,
     if img.device.type != "cuda":
         raise ValueError(f"build_scale_space_cuda: unsupported device "
                          f"{img.device}")
-    B = _batch(img)
-    H, W = img.shape[-2:]
-    sizes0, sizes1, _, _ = scale_space_plan(sigma0, k_sigma, box_n)
-    plan = launch_plan("build_scale_space", B, H, W, sizes0, sizes1)
-    outs = [torch.empty(img.shape, dtype=torch.float32, device=img.device)
-            for _ in range(5)]
-    if B > 0 and H > 0 and W > 0:
-        stream = torch.cuda.current_stream(img.device).cuda_stream
-        err = _sspace_launcher()(
-            img.data_ptr(), *[o.data_ptr() for o in outs], B, H, W,
-            (ctypes.c_int * len(sizes0))(*sizes0), len(sizes0),
-            (ctypes.c_int * len(sizes1))(*sizes1), len(sizes1),
-            plan.halo, int(plan.fixed), stream)
-        if err != 0:
-            raise RuntimeError(f"build_scale_space kernel launch failed: "
-                               f"cudaError {err}")
+    ss = sspace_launch(_sspace_launcher(), img,
+                       torch.cuda.current_stream(img.device).cuda_stream,
+                       sigma0, k_sigma, box_n)
+    if img.numel() > 0:
         build_scale_space_cuda.launches += 1
-    return ScaleSpace(*outs)
+    return ss
 
 
 build_scale_space_cuda.launches = 0
+
+
+def launch_config(kernel: str) -> Tuple[int, int]:
+    """(dynamic shared bytes, threads per block) that `kernel`'s launcher
+    passes, read from its library; needs the card."""
+    fn = getattr(_load(kernel), f"{kernel}_launch_config")
+    fn.argtypes = [ctypes.POINTER(ctypes.c_int)] * 2
+    fn.restype = None
+    smem, threads = ctypes.c_int(0), ctypes.c_int(0)
+    fn(ctypes.byref(smem), ctypes.byref(threads))
+    return smem.value, threads.value
+
 
 def blocks_per_sm(kernel: str, fixed: bool) -> int:
     """Resident blocks per SM of `kernel`'s instantiation (the default
