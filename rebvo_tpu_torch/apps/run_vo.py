@@ -1,34 +1,43 @@
-"""CLI: run mono VO on one sequence (the reference's rebvorun,
+"""CLI: run VO/VIO on one sequence (the reference's rebvorun,
 app/rebvorun/main.cpp:58-140), PyTorch port.
 
 Runs on the CUDA device unless `--cpu` is given, and writes the TUM
 trajectory (`TrayFile`) and the Matlab log (`LogFile`) into --out-dir.
 
 Examples:
-    # rendered billboard sequence, 60 frames, lateral camera path
-    python -m rebvo_tpu_torch.apps.run_vo --render 60 --out-dir ./out
+    # EuRoC directory, visual-inertial
+    python -m rebvo_tpu_torch.apps.run_vo --euroc /data/MH_01_easy/mav0 \\
+        --imu --out-dir ./out
+
+    # the dataset a REBVO-format config names (DataSetDir/DataSetFile)
+    python -m rebvo_tpu_torch.apps.run_vo --config GlobalConfig
 
     # procedural frames on the CPU
     python -m rebvo_tpu_torch.apps.run_vo --synthetic 40 --cpu
 
-    # 8 frames per call: on the card, one replay of a captured CUDA graph
+    # rendered billboard sequence, 60 frames, lateral camera path; 8
+    # frames per call: on the card, one replay of a captured CUDA graph
     python -m rebvo_tpu_torch.apps.run_vo --render 60 --chunk 8
 
-Rendered and synthetic frames come from an ideal pinhole camera, so no
-undistortion is applied to them. Dataset input and the other modes of
-the JAX package's run_vo are not ported yet; their flags fail with the
-ROADMAP item that will port them.
+As in the JAX package's run_vo, every input frame goes through the
+config's undistortion when `UseUndistort` is set, synthetic frames
+included; `--render` (the port's own pinhole renderer) zeroes the
+distortion instead, since its frames come from an ideal pinhole camera.
+In IMU mode (`--imu` or `ImuMode`) a frame with an IMU window runs
+`step_imu_donated`, one without (`--synthetic`, `--render`) the mono
+step; `--chunk` is not used in IMU mode, as in the JAX package. The
+other modes of the JAX package's run_vo are not ported yet; their flags
+fail with the ROADMAP item that will port them.
 """
 
 from __future__ import annotations
 
 import argparse
 import os
+import sys
 import time
 
 _NOT_PORTED = {
-    "euroc": "EuRoC input (io/dataset): ROADMAP queue 1, after M10",
-    "imu": "visual-inertial mode: ROADMAP M10",
     "stereo": "stereo mode: ROADMAP M11",
     "kf_every": "the keyframe store (backend/keyframe): ROADMAP M14",
     "save_video": "video saving (io/video): ROADMAP M13",
@@ -39,19 +48,21 @@ _NOT_PORTED = {
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__)
     ap.add_argument("--config", help="REBVO-format config file")
+    ap.add_argument("--euroc", help="EuRoC mav0 directory")
     ap.add_argument("--synthetic", type=int, default=0,
                     help="run N procedural frames")
     ap.add_argument("--render", type=int, default=0,
                     help="run N rendered billboard frames (lateral path)")
+    ap.add_argument("--imu", action="store_true",
+                    help="visual-inertial mode (ImuMode=2)")
     ap.add_argument("--out-dir", default=".")
     ap.add_argument("--max-frames", type=int, default=0)
     ap.add_argument("--cpu", action="store_true",
                     help="run on the CPU (plain versions of the kernels)")
-    ap.add_argument("--euroc")
-    ap.add_argument("--imu", action="store_true")
     ap.add_argument("--stereo", action="store_true")
     ap.add_argument("--chunk", type=int, default=0,
-                    help="step N frames per call (VOFrontend.step_scan)")
+                    help="step N frames per call (VOFrontend.step_scan); "
+                         "mono only")
     ap.add_argument("--kf-every", type=int, default=0)
     ap.add_argument("--save-video")
     ap.add_argument("--interactive", action="store_true")
@@ -61,62 +72,101 @@ def main(argv=None):
         if getattr(args, flag):
             ap.error(f"--{flag.replace('_', '-')} is not ported to "
                      f"rebvo_tpu_torch yet: {item}")
-    if not (args.synthetic or args.render):
-        ap.error("give --synthetic N or --render N (dataset input is not "
-                 f"ported yet: {_NOT_PORTED['euroc']})")
 
     import numpy as np
     import torch
 
     from rebvo_tpu_torch.config import REBVOParameters, load_config
     from rebvo_tpu_torch.frontend.step import VOFrontend
+    from rebvo_tpu_torch.io.dataset import (DatasetSequence, imu_window_size,
+                                            read_cam_imu_se3)
     from rebvo_tpu_torch.io.logger import RunLogger
     from rebvo_tpu_torch.io.render import render_lateral, synth_frames
+    from rebvo_tpu_torch.io.undistort import (apply_undistort,
+                                              build_undistort_map)
 
+    params = load_config(args.config) if args.config else REBVOParameters()
+    if args.imu:
+        params = params.replace(ImuMode=2)
+    if not (args.synthetic or args.render or args.euroc
+            or params.DataSetFile):
+        ap.error("give --synthetic N, --render N, --euroc DIR, or a "
+                 "--config whose DataSetFile names a dataset")
     device = "cpu" if args.cpu else "cuda"
     if device == "cuda" and not torch.cuda.is_available():
         raise SystemExit("run_vo: no CUDA device (pass --cpu to run on the "
                          "CPU)")
-    params = load_config(args.config) if args.config else REBVOParameters()
-    n = args.render or args.synthetic
-    if args.max_frames:
-        n = min(n, args.max_frames)
-    if args.render:
-        frames = render_lateral(params, n)
+
+    if args.render or args.synthetic:
+        n = args.render or args.synthetic
+        if args.render:
+            frames = render_lateral(params, n)
+            # ideal pinhole frames: nothing to undistort
+            params = params.replace(KcR2=0.0, KcR4=0.0, KcR6=0.0, KcP1=0.0,
+                                    KcP2=0.0, useUndistort=0)
+        else:
+            base = synth_frames(params, min(n, 8))
+            frames = [base[i % len(base)] for i in range(n)]
+        seq = [(i / params.config_fps, frames[i], None) for i in range(n)]
+    elif args.euroc:
+        seq = DatasetSequence.euroc(
+            args.euroc, with_imu=bool(params.ImuMode),
+            window_size=imu_window_size(params),
+            time_desinc=params.TimeDesinc)
     else:
-        base = synth_frames(params, min(n, 8))
-        frames = [base[i % len(base)] for i in range(n)]
-    # ideal pinhole frames; size the nav-log ring to the run so the whole
-    # log comes back in one transfer
-    params = params.replace(KcR2=0.0, KcR4=0.0, KcR6=0.0, KcP1=0.0,
-                            KcP2=0.0, useUndistort=0,
-                            NavLogCap=max(params.NavLogCap, n + 8))
+        seq = DatasetSequence.from_params(params)
+    n_total = len(seq)
+    if args.max_frames:
+        n_total = min(n_total, args.max_frames)
+    # size the nav-log ring to the run so the whole log comes back in one
+    # transfer
+    params = params.replace(NavLogCap=max(params.NavLogCap, n_total + 8))
     os.makedirs(args.out_dir, exist_ok=True)
 
     fe = VOFrontend(params, device=device)
+    umap = (build_undistort_map(fe.cam, device=device)
+            if params.useUndistort else None)
+    # Camera->IMU extrinsics (the reference applies them inside the IMU
+    # integration, imugrabber.cpp:135-160,217-250), as float32
+    R_c2i = T_c2i = None
+    if params.ImuMode and params.CamImuSE3File:
+        R_np, T_np = read_cam_imu_se3(params.CamImuSE3File)
+        R_c2i = torch.as_tensor(R_np, dtype=torch.float32).to(device)
+        T_c2i = torch.as_tensor(T_np, dtype=torch.float32).to(device)
+    if args.chunk > 1 and params.ImuMode:
+        print("run_vo: --chunk is not used in IMU mode", file=sys.stderr)
+    chunk = [] if args.chunk > 1 and not params.ImuMode else None
+
     state = fe.init()
-    chunk = []          # frame indices waiting for one step_scan call
+    n_done = 0
     t_start = time.perf_counter()
-    for i in range(n):
-        t = i / params.config_fps
-        if i == 0:
-            state = fe.bootstrap(state, frames[i], t)
-        elif args.chunk > 1:
-            chunk.append(i)
+    for t, frame, win in seq:
+        frame = torch.as_tensor(frame, dtype=torch.float32).to(device)
+        if umap is not None:
+            frame = apply_undistort(umap, frame)
+        if n_done == 0:
+            state = fe.bootstrap(state, frame, t)
+        elif chunk is not None:
+            chunk.append((frame, t))
             if len(chunk) == args.chunk:
                 state, _ = fe.step_scan(
-                    state, np.stack([frames[j] for j in chunk]),
-                    np.asarray([j / params.config_fps for j in chunk],
-                               np.float32))
+                    state, torch.stack([f for f, _ in chunk]),
+                    np.asarray([tt for _, tt in chunk], np.float32))
                 chunk.clear()
+        elif params.ImuMode and win is not None:
+            # donated steps: the previous state's buffers are reused
+            state, _ = fe.step_imu_donated(state, frame, t, win, R_c2i,
+                                           T_c2i)
         else:
-            # donated step: the previous state's buffers are reused
-            state, _ = fe.step_donated(state, frames[i], t)
-        if (i + 1) % 50 == 0:
-            print(f"frame {i + 1}", flush=True)
+            state, _ = fe.step_donated(state, frame, t)
+        n_done += 1
+        if n_done % 50 == 0:
+            print(f"frame {n_done}", flush=True)
+        if n_done >= n_total:
+            break
     # the partial tail chunk, one frame at a time
-    for j in chunk:
-        state, _ = fe.step_donated(state, frames[j], j / params.config_fps)
+    for f, tt in chunk or ():
+        state, _ = fe.step_donated(state, f, tt)
     if device == "cuda":
         torch.cuda.synchronize()
     wall = time.perf_counter() - t_start
@@ -126,8 +176,8 @@ def main(argv=None):
     logger.write_trajectory(tray)
     logger.write_mfile(os.path.join(args.out_dir, params.LogFile))
     r = logger.rows[-1] if logger.rows else {}
-    print(f"processed {n} frames in {wall:.1f}s on {device} "
-          f"({n / wall:.1f} fps); kl={r.get('kl_num')} "
+    print(f"processed {n_done} frames in {wall:.1f}s on {device} "
+          f"({n_done / wall:.1f} fps); kl={r.get('kl_num')} "
           f"match={r.get('klm_num')}; trajectory -> {tray}")
     return logger
 

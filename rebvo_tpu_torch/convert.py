@@ -11,7 +11,11 @@ single step can be compared:
 `state_from_numpy` takes any nested NamedTuple (or dict) whose node names
 and field names match the port's VOState (VOState, KeylineMap, ImuCarry,
 ScaleWindows, KFCarry) and whose leaves are numpy arrays, so it never
-needs the JAX package itself.
+needs the JAX package itself. `imu_window_from_numpy` does the same for
+one IMU window (gyro, accel, count, tsample), so a JAX window and a port
+window carry the same samples:
+
+    win_t = imu_window_from_numpy(jax.tree_util.tree_map(np.asarray, win))
 """
 
 from __future__ import annotations
@@ -22,7 +26,7 @@ import numpy as np
 import torch
 
 from rebvo_tpu_torch.config import REBVOParameters
-from rebvo_tpu_torch.frontend.imu import ScaleWindows
+from rebvo_tpu_torch.frontend.imu import ImuWindow, ScaleWindows
 from rebvo_tpu_torch.frontend.kf_tracking import KFCarry
 from rebvo_tpu_torch.frontend.state import KeylineMap
 from rebvo_tpu_torch.frontend.step import ImuCarry, VOState
@@ -60,6 +64,11 @@ def _build(cls, tree, device):
 def state_from_numpy(tree, device="cuda") -> VOState:
     """A port VOState from a numpy state tree (see the module note)."""
     return _build(VOState, tree, device)
+
+
+def imu_window_from_numpy(tree, device="cuda") -> ImuWindow:
+    """A port ImuWindow from a numpy window (see the module note)."""
+    return _build(ImuWindow, tree, device)
 
 
 def state_to_numpy(state):

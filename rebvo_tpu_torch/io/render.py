@@ -1,6 +1,8 @@
 """Procedural synthetic sequence renderer for end-to-end VO tests and
 smoke runs (a copy of rebvo_tpu/io/render.py, owned by the port, plus the
-procedural `synth_frames` and the lateral `render_lateral` sequence).
+procedural `synth_frames`, the lateral `render_lateral` sequence, and
+`write_euroc_vi`, which writes a EuRoC directory of distorted frames and
+the IMU samples of their path).
 
 Renders a textured fronto-parallel plane (piecewise-constant 'cartoon'
 texture whose region boundaries provide DoG edges) viewed by a moving
@@ -188,3 +190,130 @@ def render_lateral(params, n_frames, step=0.01, seed=0, ss=1):
         n_frames, width=params.ImageWidth, height=params.ImageHeight,
         zf=params.zf_mean, cx=params.PPx, cy=params.PPy,
         cam_positions=pos, seed=seed, ss=ss)
+
+
+def _undistort_np(hx, hy, cam, iters=20):
+    """Distorted hom -> ideal hom: the exact inverse of
+    CameraModel.distort_hom (radial + tangential, per-axis focal) by
+    fixed-point iteration in float64, as OpenCV's undistortPoints does."""
+    xd, yd = hx / cam.fx, hy / cam.fy
+    x, y = xd.copy(), yd.copy()
+    for _ in range(iters):
+        r2 = x * x + y * y
+        radial = 1.0 + r2 * (cam.kc2 + r2 * (cam.kc4 + r2 * cam.kc6))
+        tx = 2.0 * cam.p1 * x * y + cam.p2 * (r2 + 2.0 * x * x)
+        ty = cam.p1 * (r2 + 2.0 * y * y) + 2.0 * cam.p2 * x * y
+        x, y = (xd - tx) / radial, (yd - ty) / radial
+    return x * cam.zfm, y * cam.zfm
+
+
+def vi_lateral_path(t, t_hold):
+    """Camera path of `write_euroc_vi` at times t (s): still until
+    t_hold, then x = amp (1 - cos w tau)^2 / 2 (from 0 to 2 amp = 0.3 m
+    and back at 0.5 Hz, starting at zero velocity and zero acceleration)
+    and a yaw dither yaw_amp (1 - cos w2 tau) about the camera y axis
+    (0.03 rad at 0.7 Hz, starting at zero rate). Returns (pos [N,3],
+    pos'' [N,3], yaw [N], yaw' [N])."""
+    amp, yaw_amp = 0.15, 0.03
+    tau = np.maximum(np.asarray(t, np.float64) - t_hold, 0.0)
+    w, w2 = 2 * np.pi * 0.5, 2 * np.pi * 0.7
+    c, s = np.cos(w * tau), np.sin(w * tau)
+    pos = np.zeros(tau.shape + (3,))
+    acc = np.zeros(tau.shape + (3,))
+    pos[..., 0] = 0.5 * amp * (1.0 - c) ** 2
+    acc[..., 0] = amp * w * w * (s * s + (1.0 - c) * c)
+    yaw = yaw_amp * (1.0 - np.cos(w2 * tau))
+    yaw_dot = yaw_amp * w2 * np.sin(w2 * tau)
+    return pos, acc, yaw, yaw_dot
+
+
+def _yaw_R(a):
+    c, s = np.cos(a), np.sin(a)
+    return np.asarray([[c, 0.0, s], [0.0, 1.0, 0.0], [-s, 0.0, c]])
+
+
+IMU_HZ = 200.0                # write_euroc_vi's IMU rate (EuRoC's)
+T0_NS = 1_000_000_000         # its first frame's time stamp
+
+
+def write_euroc_vi(params, n_frames: int, out_dir: str, seed: int = 0,
+                   workers: int = 1):
+    """Write a EuRoC `mav0` directory for a visual-inertial run at the
+    config's camera: `cam0/data.csv`, `cam0/data/<ns>.png` (8-bit grey)
+    and `imu0/data.csv` at IMU_HZ, gravity +y in the world, IMU frame =
+    camera frame.
+
+    The camera holds still for InitBiasFrameNum + 2 frames (the gyro-bias
+    init averages them), then moves on `vi_lateral_path`. The IMU is the
+    exact derivative of that path: body rate (0, yaw', 0) and specific
+    force R^T (a_w - g_w). Each frame is a billboard scene rendered by an
+    ideal pinhole camera of focal zf_mean, oversized by a margin, then
+    resampled at every pixel of the config's camera through the exact
+    inverse of its distortion (radial-tangential, per-axis focal), so
+    the pipeline's undistortion undoes a real distortion. `workers`
+    threads render and write frames at once (numpy and zlib release the
+    GIL). Returns (frame times in s, camera positions [n, 3])."""
+    import os
+    from concurrent.futures import ThreadPoolExecutor
+
+    from rebvo_tpu_torch.core.geometry import CameraModel
+    from rebvo_tpu_torch.io.png import write_png
+
+    cam = CameraModel.from_params(params)
+    H, W = params.ImageHeight, params.ImageWidth
+    fps = params.config_fps
+    t_hold = (params.InitBiasFrameNum + 2) / fps
+    t_frames = np.arange(n_frames) / fps
+    pos, _, yaw, _ = vi_lateral_path(t_frames, t_hold)
+    rots = np.stack([_yaw_R(a) for a in yaw])
+
+    ys, xs = np.meshgrid(np.arange(H, dtype=np.float64),
+                         np.arange(W, dtype=np.float64), indexing="ij")
+    ux, uy = _undistort_np(xs - cam.cx, ys - cam.cy, cam)
+    m = int(np.ceil(max(np.abs(ux + cam.cx - xs).max(),
+                        np.abs(uy + cam.cy - ys).max()))) + 2
+    sx = np.clip(ux + cam.cx + m, 0, W + 2 * m - 1.001)
+    sy = np.clip(uy + cam.cy + m, 0, H + 2 * m - 1.001)
+    x0, y0 = sx.astype(np.int64), sy.astype(np.int64)
+    fx, fy = sx - x0, sy - y0
+
+    cam_dir = os.path.join(out_dir, "cam0", "data")
+    imu_dir = os.path.join(out_dir, "imu0")
+    os.makedirs(cam_dir, exist_ok=True)
+    os.makedirs(imu_dir, exist_ok=True)
+    stamps = [T0_NS + int(round(t * 1e9)) for t in t_frames]
+
+    def frame(i):
+        img = render_billboards_seq(
+            1, width=W + 2 * m, height=H + 2 * m, zf=cam.zfm,
+            cx=cam.cx + m, cy=cam.cy + m, cam_positions=pos[i:i + 1],
+            cam_rotations=rots[i:i + 1], seed=seed, ss=1)[0]
+        d = (img[y0, x0] * (1 - fx) * (1 - fy) + img[y0, x0 + 1] * fx *
+             (1 - fy) + img[y0 + 1, x0] * (1 - fx) * fy +
+             img[y0 + 1, x0 + 1] * fx * fy)
+        write_png(os.path.join(cam_dir, f"{stamps[i]}.png"),
+                  np.clip(np.round(d / 3.0), 0, 255).astype(np.uint8))
+
+    with ThreadPoolExecutor(max_workers=max(workers, 1)) as pool:
+        list(pool.map(frame, range(n_frames)))
+    lines = ["#timestamp [ns],filename"] + [f"{ns},{ns}.png"
+                                           for ns in stamps]
+    with open(os.path.join(out_dir, "cam0", "data.csv"), "w") as fh:
+        fh.write("\n".join(lines) + "\n")
+
+    # IMU from 0.1 s before the first frame to past the last one
+    tk = np.arange(-int(0.1 * IMU_HZ), int((t_frames[-1] + 0.05) * IMU_HZ)
+                   + 1) / IMU_HZ
+    _, acc, yaw_k, yaw_dot = vi_lateral_path(tk, t_hold)
+    g_w = np.asarray([0.0, 9.8, 0.0])
+    lines = ["#timestamp [ns],w_RS_S_x [rad s^-1],w_RS_S_y [rad s^-1],"
+             "w_RS_S_z [rad s^-1],a_RS_S_x [m s^-2],a_RS_S_y [m s^-2],"
+             "a_RS_S_z [m s^-2]"]
+    for k in range(tk.shape[0]):
+        f = _yaw_R(yaw_k[k]).T @ (acc[k] - g_w)
+        ns = T0_NS + int(round(tk[k] * 1e9))
+        lines.append(f"{ns},0.0,{yaw_dot[k]:.9f},0.0,"
+                     f"{f[0]:.9f},{f[1]:.9f},{f[2]:.9f}")
+    with open(os.path.join(imu_dir, "data.csv"), "w") as fh:
+        fh.write("\n".join(lines) + "\n")
+    return t_frames, pos

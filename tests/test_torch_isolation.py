@@ -25,14 +25,25 @@ from rebvo_tpu_torch.io.render import synth_frames
 import rebvo_tpu_torch.apps.run_vo, rebvo_tpu_torch.convert
 import rebvo_tpu_torch.kernels.cuda_scale_space, rebvo_tpu_torch.backend.kfvo
 import rebvo_tpu_torch.profiling, rebvo_tpu_torch.bench
+import rebvo_tpu_torch.io.dataset, rebvo_tpu_torch.io.undistort
+import rebvo_tpu_torch.io.png
+from rebvo_tpu_torch.io.dataset import slice_imu_windows
 p = REBVOParameters().replace(ImageWidth=96, ImageHeight=64, PPx=48.0,
-                              PPy=32.0, KeylineMax=512, NavLogCap=8)
-fr = synth_frames(p, 2)
+                              PPy=32.0, KeylineMax=512, NavLogCap=8,
+                              ImuMode=2)
+fr = synth_frames(p, 3)
 fe = VOFrontend(p, device="cpu")
 st = fe.bootstrap(fe.init(), fr[0], 0.0)
 st, out = fe.step(st, fr[1], 0.05)
 assert np.all(np.isfinite(out.nav.Pos.numpy()))
 assert int(st.last_kl_num) > 0
+imu = np.zeros((30, 7))
+imu[:, 0] = np.arange(30) * 0.005
+imu[:, 5] = -9.8
+win = slice_imu_windows(imu, [0.0, 0.05, 0.1], window_size=16)[2]
+st, out = fe.step_imu(st, fr[2], 0.1, win)
+assert np.all(np.isfinite(out.nav.Pos.numpy()))
+assert int(win.count) == 10
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith(("jax.", "jaxlib"))
              or m == "rebvo_tpu" or m.startswith("rebvo_tpu."))

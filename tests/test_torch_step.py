@@ -152,17 +152,24 @@ def test_nav_log_ring_matches_outputs(runs):
 
 
 def test_unported_modes_raise():
+    """Stereo (ROADMAP M11) is not ported: a stereo config, and a pair
+    frame given to the mono or the visual-inertial step, raise."""
     p = small_params()
     with pytest.raises(NotImplementedError, match="M11"):
         TorchFrontend(p.replace(StereoAvaiable=1), device="cpu")
     fe = TorchFrontend(p, device="cpu")
-    with pytest.raises(NotImplementedError, match="M10"):
-        fe.step_imu(None, None, None, None)
+    for step in (fe.step, fe.step_imu, fe.step_imu_donated):
+        args = (None, None, None) + ((None,) if "imu" in step.__name__
+                                     else ())
+        with pytest.raises(NotImplementedError, match="M11"):
+            step(*args, frame_pair=np.zeros((2, 2), np.float32))
 
 
 def test_run_vo_synthetic_writes_tum(tmp_path):
     """run_vo on 6 procedural frames on the CPU: frame 0 bootstraps and
-    each later frame logs one row, as in the JAX package's run_vo."""
+    each later frame logs one row, as in the JAX package's run_vo. With
+    --imu the synthetic frames carry no IMU window, so they run the mono
+    step, as in the JAX package; --stereo exits (ROADMAP M11)."""
     from rebvo_tpu_torch.apps import run_vo
     cfg = tmp_path / "small.cfg"
     cfg.write_text("&Camera\nImageWidth=188\nImageHeight=120\nZfX=100\n"
@@ -173,5 +180,10 @@ def test_run_vo_synthetic_writes_tum(tmp_path):
     assert len(t) == 5
     assert np.all(np.isfinite(pos)) and np.all(np.isfinite(quat))
     assert os.path.exists(os.path.join(tmp_path, "rebvo_log.m"))
+    imu_dir = tmp_path / "imu"
+    run_vo.main(["--cpu", "--imu", "--synthetic", "3", "--config", str(cfg),
+                 "--out-dir", str(imu_dir)])
+    t, pos, _ = read_tum(os.path.join(imu_dir, "rebvo_tray.txt"))
+    assert len(t) == 2 and np.all(np.isfinite(pos))
     with pytest.raises(SystemExit):
-        run_vo.main(["--cpu", "--imu", "--synthetic", "3"])
+        run_vo.main(["--cpu", "--stereo", "--synthetic", "3"])
