@@ -46,12 +46,31 @@ Phases, each printing one JSON line; any failure exits non-zero:
                 start), and at each of the 5 filtered frames among them
                 one CPU step from the card's state against the card's
                 step (K, g, Pos);
+  11. stereo_main — the stereo path at the default config with
+                StereoAvaiable=1, on phase 10's directory (which holds cam1
+                too): 60 frames through both cameras' undistortion and
+                step_donated with the pair, every step after the first
+                under set_sync_debug_mode("error"); K1 twice a frame, the
+                keyline and stereo-match floors, and the trajectory's
+                scale against the written path with no scale fitted, each
+                bar between what the JAX package reaches on the fixture
+                and a collapse;
+  11b. stereo_profile — 2 more stereo steps under torch.profiler (spans
+                vo.stereo and vo.detect, K1's share of the device time);
+  11c. stereo_run_vo — run_vo --euroc DIR --stereo against phase 11, and
+                run_vo --euroc DIR --stereo --imu (K in band, the written
+                path's metric scale);
+  11d. stereo_cpu — the first 8 stereo frames on the CPU against the card;
+  11e. vosystem — VOSystem over phase 4's first 20 frames, in turns
+                with step_donated on a twin frontend (trajectory, keyframe
+                store, pose log, the pose-graph optimizer, a snapshot read
+                back, ms/frame of both and the system's host read alone);
   9. kernels  — the kernel list, with K1's launches on every path.
-Each path (phases 4, 4b, 6, 6b, 8, 10, 10c) starts with every kernel's
-launch count at 0 and reports the counts it ends with. Each phase line carries
-`elapsed_s`, the seconds since the script started. Then the nvidia-smi line,
-and last {"ok": true, "device": {...}}. Longer artefacts go to
-chiprun_out/smoke/.
+Each path (phases 4, 4b, 6, 6b, 8, 10, 10c, 11, 11c, 11e) starts with
+every kernel's launch count at 0 and reports the counts it ends with. Each
+phase line carries `elapsed_s`, the seconds since the script started.
+Then the nvidia-smi line, and last {"ok": true, "device": {...}}. Longer
+artefacts go to chiprun_out/smoke/.
 """
 
 from __future__ import annotations
@@ -106,6 +125,32 @@ VI_SCALE_BAND = (0.5, 2.0)   # and the similarity alignment's scale
 VI_CPU_K_RTOL, VI_CPU_G_ATOL, VI_CPU_POS_ATOL = 5e-2, 5e-2, 1e-3
 G_DOWN = np.asarray([0.0, 1.0, 0.0])     # gravity in write_euroc_vi's
                                          # camera frame (+y, no roll)
+N_ST = 60                # stereo frames of phase 11 (phase 10's fixture)
+N_ST_PROFILE = 2         # and of phase 11b after them
+N_ST_CPU = 8             # stereo frames of phase 11d
+N_SYS = 20               # mono frames of phase 11e (phase 4's)
+# phase 11's bars, each between what the JAX package itself reaches on
+# this fixture at full width (run_vo --cpu --euroc --stereo, UsePallas=0)
+# and a fault's reading on the card (python3 tools/stereo_bars.py): the
+# stereo_num on every frame after the first (JAX: at least 2074); its
+# share of klm_num on frames 2-9, while the detector threshold settles
+# (JAX: 0.163 at the second frame; a dropped pair: 0), and from frame 10
+# (JAX and the port: 0.396; cam1 three frames late: 0.199); over the
+# moving frames, against the written path with no scale fitted, the
+# similarity alignment's scale (JAX: 0.518; twice the baseline: 0.247,
+# cam1 late: 0.361; half the baseline: 1.028, StereoVelRescale=0: 1.051,
+# a dropped pair: 2.92) and the rigidly aligned ATE's share of the path's
+# extent (JAX: 0.352; twice the baseline: 0.646). The band holds the
+# reference's behaviour on this scene, which loses the scale on the
+# return leg: a true metric scale of 1 lies outside it.
+ST_NUM_FLOOR, ST_NUM_SHARE_EARLY, ST_NUM_SHARE = 1000, 0.1, 0.3
+ST_SHARE_SETTLED = 10
+ST_SCALE_BAND = (0.4, 0.75)
+ST_ATE_METRIC = 0.5
+# phase 11c's stereo-VIO run: the rigidly aligned ATE over the filtered
+# frames (JAX at full width: 0.0246 of the extent, K within 0.92-1.10)
+ST_VIO_ATE_METRIC = 0.25
+ST_CPU_NUM = 0.01        # phase 11d: stereo_num, CPU against the card
 KL_FLOOR = 2000          # keylines a textured 752x480 frame must give
 SS_MAPS = ("img0", "img1", "dog", "dx", "dy")
 CAND_MAPS = ("theta_x", "theta_y", "xs", "ys", "n2_m")
@@ -348,16 +393,23 @@ def profile_steps(fe, state, frames, ts, step=None, extra=None,
         "spans": spans, "top_ops": top}
 
 
-def vi_path(smi):
+def write_fixture():
+    """The EuRoC directory phases 10 and 11 share: N_VI + N_VI_PROFILE
+    frames of cam0 and cam1 and their 200 Hz IMU, at the default config
+    (write_euroc_vi). Returns (directory, cam0 positions, seconds)."""
+    vi_dir = os.path.join(OUT, "euroc_vi")
+    shutil.rmtree(vi_dir, ignore_errors=True)
+    t0 = time.perf_counter()
+    _, pos_true = write_euroc_vi(REBVOParameters(), N_VI + N_VI_PROFILE,
+                                 vi_dir, workers=8, stereo=True)
+    return vi_dir, pos_true, time.perf_counter() - t0
+
+
+def vi_path(smi, vi_dir, pos_true, write_s):
     """Phases 10-10d: the visual-inertial EuRoC path at the default
     config with ImuMode=2. Returns ({path: launch counts}, ok)."""
     p = REBVOParameters().replace(ImuMode=2)
     on = 5 + p.InitBiasFrameNum          # the scale filter's first step
-    vi_dir = os.path.join(OUT, "euroc_vi")
-    shutil.rmtree(vi_dir, ignore_errors=True)
-    t0 = time.perf_counter()
-    _, pos_true = write_euroc_vi(p, N_VI + N_VI_PROFILE, vi_dir, workers=8)
-    write_s = time.perf_counter() - t0
     t0 = time.perf_counter()
     items = list(DatasetSequence.euroc(
         vi_dir, with_imu=True, window_size=imu_window_size(p),
@@ -548,6 +600,303 @@ def vi_path(smi):
           "seq_max_abs_pos_diff": gap("Pos", seq),
           "seq_max_abs_vel_diff": gap("Vel", seq)})
     return {"vi_main": vi_launches, "vi_run_vo": rv_launches}, ok10d
+
+
+def _tum_rows(path):
+    tum = np.loadtxt(path, ndmin=2)
+    return tum, tum[:, 1:4]
+
+
+def stereo_path(smi, st_dir, pos_true):
+    """Phases 11-11d: the stereo EuRoC path at the default config with
+    StereoAvaiable=1, on phase 10's directory (cam0 + cam1). Returns
+    ({path: launch counts}, ok)."""
+    from rebvo_tpu_torch.io.logger import read_mfile
+    p = REBVOParameters().replace(StereoAvaiable=1)
+    move = p.InitBiasFrameNum + 2          # the path's first moving frame
+    t0 = time.perf_counter()
+    items = list(DatasetSequence.euroc(st_dir, with_imu=False, stereo=True))
+    read_s = time.perf_counter() - t0
+    ts = [t for t, _, _, _ in items]
+    f0 = [torch.as_tensor(f, device="cuda") for _, f, _, _ in items]
+    f1 = [torch.as_tensor(g, device="cuda") for _, _, _, g in items]
+
+    # ---- 11. the stereo path -------------------------------------------
+    fe = VOFrontend(p, device="cuda")
+    um0 = build_undistort_map(fe.cam, device="cuda")
+    um1 = build_undistort_map(fe.cam_pair, device="cuda")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_launches()
+    state = fe.bootstrap(fe.init(), apply_undistort(um0, f0[0]), ts[0],
+                         apply_undistort(um1, f1[0]))
+    outs, kl_pair, step_ms = [], [], []
+    for i in range(1, N_ST):
+        if i > 1:
+            torch.cuda.set_sync_debug_mode("error")
+        try:
+            t0 = time.perf_counter()
+            state, out = fe.step_donated(state, apply_undistort(um0, f0[i]),
+                                         ts[i], apply_undistort(um1, f1[i]))
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        outs.append(out)
+        kl_pair.append(state.last_kl_num_pair)
+    st_launches = read_launches()
+    peak_mb = torch.cuda.max_memory_allocated() / 2 ** 20
+    pos = np.stack([o.nav.Pos.cpu().numpy() for o in outs])
+    kl = [int(o.nav.kl_num) for o in outs]
+    kl1 = [int(k) for k in kl_pair]
+    klm = [int(o.nav.klm_num) for o in outs]
+    snum = [int(o.stereo_num) for o in outs]
+    est = [bool(o.nav.estimation_ok) for o in outs]
+    est_share = float(np.mean(est[2:]))
+    k1 = st_launches["detect_candidates_cuda"]
+    finite = bool(np.all(np.isfinite(pos)))
+    # the trajectory against the written path, no scale fitted by the
+    # system: pos[i - 1] is frame i
+    est_on, true_on = pos[move:], pos_true[move + 1:N_ST]
+    extent = float(np.ptp(true_on, axis=0).max())
+    ate = ate_rmse(est_on, true_on, with_scale=True)
+    ate_metric = ate_rmse(est_on, true_on, with_scale=False)
+    scale = align_umeyama(est_on, true_on)[0]
+    # outs[j] is frame j + 1: the share's bar steps up at frame
+    # ST_SHARE_SETTLED
+    share = [n / m for n, m in zip(snum, klm)]
+    early = share[1:ST_SHARE_SETTLED - 1]
+    settled = share[ST_SHARE_SETTLED - 1:]
+    st_ok = ([n >= ST_NUM_FLOOR for n in snum[1:]]
+             + [s >= ST_NUM_SHARE_EARLY for s in early]
+             + [s >= ST_NUM_SHARE for s in settled])
+    ok11 = (finite and min(kl) >= KL_FLOOR and min(kl1) >= KL_FLOOR
+            and all(st_ok) and est_share >= 0.9 and k1 == 2 * N_ST
+            and ST_SCALE_BAND[0] < scale < ST_SCALE_BAND[1]
+            and ate_metric <= ST_ATE_METRIC * extent)
+    steady = step_ms[5:]
+    np.savez(os.path.join(OUT, "stereo_path.npz"), pos=pos, kl=kl, kl1=kl1,
+             klm=klm, stereo_num=snum, est=est, step_ms=step_ms,
+             pos_true=pos_true)
+    emit({"phase": "stereo_main", "ok": ok11, "frames": N_ST,
+          "launches": st_launches, "k1_launches": k1,
+          "k1_launches_expected": 2 * N_ST, "kl_min_cam0": min(kl),
+          "kl_min_cam1": min(kl1), "kl_floor": KL_FLOOR,
+          "stereo_num_min": min(snum[1:]), "klm_min": min(klm),
+          "stereo_num_floor": ST_NUM_FLOOR,
+          "stereo_share_min_frames_2_9": min(early),
+          "stereo_share_floor_frames_2_9": ST_NUM_SHARE_EARLY,
+          "stereo_share_min_settled": min(settled),
+          "stereo_share_floor_settled": ST_NUM_SHARE,
+          "share_settled_from_frame": ST_SHARE_SETTLED,
+          "est_ok_share_after_2": est_share,
+          "VScaleC": float(state.VScaleC), "Kp": float(state.Kp),
+          "scale_vs_path": scale, "scale_band": ST_SCALE_BAND,
+          "ate_vs_path": ate, "ate_vs_path_metric": ate_metric,
+          "path_extent": extent, "ate_metric_bar": ST_ATE_METRIC * extent,
+          "pos_finite": finite,
+          "ms_per_frame_median": statistics.median(steady),
+          "ms_per_frame_min": min(steady), "warmup_frames": 5,
+          "read_s": read_s,
+          "timing": "host clock around both undistortions + step_donated "
+                    "+ synchronize",
+          "peak_device_mb": peak_mb, "card": smi})
+    if not ok11:
+        return {"stereo_main": st_launches}, False
+
+    # ---- 11b. where the stereo step's time goes -------------------------
+    pf0 = [apply_undistort(um0, f) for f in f0[N_ST:N_ST + N_ST_PROFILE]]
+    pf1 = [(apply_undistort(um1, g),) for g in f1[N_ST:N_ST + N_ST_PROFILE]]
+    _, prof = profile_steps(fe, state, pf0, ts[N_ST:N_ST + N_ST_PROFILE],
+                            extra=pf1, table="profile_stereo.txt")
+    busy = prof["device_busy_ms_per_step"]
+    emit({"phase": "stereo_profile", **prof,
+          "k1_share_of_busy": (prof["k1_ms_per_step"] / busy if busy
+                               else None),
+          "device_idle_share": 1.0 - busy / statistics.median(steady),
+          "idle_share_of": "median unprofiled ms/frame of phase 11",
+          "card": smi})
+
+    # ---- 11c. run_vo --euroc --stereo (and --imu) on the card -----------
+    from rebvo_tpu_torch.apps import run_vo
+    cfg = os.path.join(OUT, "stereo_run_vo.cfg")
+    save_config(p, cfg)
+    rv = {}
+    for label, extra in (("stereo_run_vo", []),
+                         ("stereo_vio_run_vo", ["--imu"])):
+        zero_launches()
+        out_dir = os.path.join(OUT, label)
+        run_vo.main(["--euroc", st_dir, "--stereo", "--max-frames",
+                     str(N_ST), "--out-dir", out_dir, "--config", cfg] + extra)
+        rv[label] = read_launches()
+        tum, rpos = _tum_rows(os.path.join(out_dir, p.TrayFile))
+        finite = tum.shape[0] == N_ST - 1 and bool(np.all(np.isfinite(tum)))
+        ok = finite and rv[label]["detect_candidates_cuda"] == 2 * N_ST
+        line = {"phase": label, "tum_rows": int(tum.shape[0]),
+                "expected_rows": N_ST - 1, "launches": rv[label]}
+        if not extra:
+            # the same donated steps as phase 11: phase 7's bar
+            tol = pos_tolerance(pos)
+            dpos = float(np.abs(rpos - pos).max()) if finite else float("inf")
+            ok = ok and dpos <= tol
+            line.update(max_abs_pos_diff=dpos, tolerance=tol)
+        else:
+            # stereo-VIO: K in the filter's band on every filtered frame,
+            # the trajectory near the written path, rigidly aligned
+            on = 5 + p.InitBiasFrameNum
+            K = read_mfile(os.path.join(out_dir, p.LogFile))["Kscale"][:, 0]
+            k_band = bool(np.all((K[on - 1:] > VI_K_FLOOR) &
+                                 (K[on - 1:] < VI_K_CEIL)))
+            est_on, true_on = rpos[on - 1:], pos_true[on:N_ST]
+            extent = float(np.ptp(true_on, axis=0).max())
+            ate_metric = (ate_rmse(est_on, true_on, with_scale=False)
+                          if finite else float("inf"))
+            ok = (ok and k_band
+                  and ate_metric <= ST_VIO_ATE_METRIC * extent)
+            line.update(K_in_band=k_band, K_min=float(K[on - 1:].min()),
+                        K_max=float(K[on - 1:].max()), K_final=float(K[-1]),
+                        K_band=[VI_K_FLOOR, VI_K_CEIL],
+                        ate_vs_path_metric=ate_metric, path_extent=extent,
+                        ate_metric_bar=ST_VIO_ATE_METRIC * extent,
+                        scale_vs_path=(align_umeyama(est_on, true_on)[0]
+                                       if finite else None))
+        emit({**line, "ok": ok})
+        if not ok:
+            return {"stereo_main": st_launches, **rv}, False
+
+    # ---- 11d. the first stereo frames on the CPU ------------------------
+    fe_cpu = VOFrontend(p, device="cpu")
+    uc0 = build_undistort_map(fe_cpu.cam, device="cpu")
+    uc1 = build_undistort_map(fe_cpu.cam_pair, device="cpu")
+    c0 = [apply_undistort(uc0, f.cpu()) for f in f0[:N_ST_CPU]]
+    c1 = [apply_undistort(uc1, g.cpu()) for g in f1[:N_ST_CPU]]
+    st = fe_cpu.bootstrap(fe_cpu.init(), c0[0], ts[0], c1[0])
+    cpu = []
+    for i in range(1, N_ST_CPU):
+        st, out = fe_cpu.step_donated(st, c0[i], ts[i], c1[i])
+        cpu.append((out, int(st.last_kl_num_pair)))
+    n = N_ST_CPU - 1
+    cpu_pos = np.stack([o.nav.Pos.numpy() for o, _ in cpu])
+    cpu_kl = [int(o.nav.kl_num) for o, _ in cpu]
+    cpu_kl1 = [k for _, k in cpu]
+    cpu_st = [int(o.stereo_num) for o, _ in cpu]
+    st_gap = max(abs(a - b) / max(b, 1) for a, b in zip(cpu_st, snum[:n]))
+    tol = pos_tolerance(cpu_pos)
+    dpos = float(np.abs(cpu_pos - pos[:n]).max())
+    ok11d = (cpu_kl == kl[:n] and cpu_kl1 == kl1[:n]
+             and st_gap <= ST_CPU_NUM and dpos <= tol)
+    emit({"phase": "stereo_cpu", "ok": ok11d, "frames": N_ST_CPU,
+          "kl_cpu": cpu_kl, "kl_card": kl[:n], "kl_cam1_cpu": cpu_kl1,
+          "kl_cam1_card": kl1[:n], "stereo_num_cpu": cpu_st,
+          "stereo_num_card": snum[:n], "stereo_num_max_rel_diff": st_gap,
+          "stereo_num_rtol": ST_CPU_NUM, "max_abs_pos_diff": dpos,
+          "tolerance": tol})
+    return {"stereo_main": st_launches, **rv}, ok11d
+
+
+def vosystem_phase(smi, p, frames, ts, pos4):
+    """Phase 11e: VOSystem on the card over phase 4's first N_SYS mono
+    frames, frame by frame in turns with step_donated on a twin
+    frontend (the order swapped every frame), and the system's per-frame
+    host read (_keyframe_and_log: one transfer of the keyframe decision
+    and the pose-log measurement, the 6x6 pinv, the keyframe push) timed
+    on its own after a synchronize. Returns (launch counts, ok)."""
+    from rebvo_tpu_torch.backend.keyframe import load_keyframes
+    from rebvo_tpu_torch.backend.posegraph import (PoseGraphLog,
+                                                   optimize_pose_graph,
+                                                   problem_from_log)
+    from rebvo_tpu_torch.system import VOSystem
+
+    sys_ = VOSystem(p, device="cuda")
+    fe = VOFrontend(p, device="cuda")
+    keyframe_and_log = sys_._keyframe_and_log
+    read_ms = []
+
+    def timed_read(out):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        keyframe_and_log(out)
+        read_ms.append((time.perf_counter() - t0) * 1e3)
+
+    sys_._keyframe_and_log = timed_read
+    sys_launches = dict.fromkeys(read_launches(), 0)
+    fe_state = None
+
+    def system_frame(i):
+        zero_launches()
+        t0 = time.perf_counter()
+        out = sys_.process_frame(frames[i], ts[i])
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        for k, v in read_launches().items():
+            sys_launches[k] += v
+        return out, ms
+
+    def step_frame(i):
+        nonlocal fe_state
+        t0 = time.perf_counter()
+        if i == 0:
+            fe_state = fe.bootstrap(fe.init(), frames[0], ts[0])
+        else:
+            fe_state, _ = fe.step_donated(fe_state, frames[i], ts[i])
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3
+
+    outs, sys_ms, step_ms = [], [], []
+    for i in range(N_SYS):
+        if i % 2:
+            ms_b = step_frame(i)
+            out, ms_a = system_frame(i)
+        else:
+            out, ms_a = system_frame(i)
+            ms_b = step_frame(i)
+        if i > 0:
+            outs.append(out)
+            sys_ms.append(ms_a)
+            step_ms.append(ms_b)
+    spos = np.stack([o.nav.Pos.cpu().numpy() for o in outs])
+    ref = pos4[:N_SYS - 1]
+    tol = pos_tolerance(ref)
+    dpos = float(np.abs(spos - ref).max())
+    saved = sum(bool(o.kf_saved) for o in outs)
+    n_kf = int(sys_.kf_store.count)
+    prob, n_nodes = problem_from_log(sys_.pose_log, device="cuda")
+    R0 = torch.eye(3, device="cuda").repeat(n_nodes, 1, 1)
+    _, _, costs = optimize_pose_graph(
+        R0, torch.zeros((n_nodes, 3), device="cuda"), prob, iters=3)
+    costs = costs.cpu().numpy()
+    snap = os.path.join(OUT, "vosystem")
+    os.makedirs(snap, exist_ok=True)
+    kf_path = os.path.join(snap, "kf_list.npz")
+    pg_path = os.path.join(snap, "poses_list.npz")
+    sys_.TakeSnapshot(kf_path, pg_path)
+    back_kf = load_keyframes(kf_path, device="cuda")
+    back_pg = PoseGraphLog.load(pg_path)
+    snap_ok = (int(back_kf.count) == n_kf
+               and len(back_pg.meas) == len(sys_.pose_log.meas)
+               and bool(torch.equal(back_kf.Pos, sys_.kf_store.Pos)))
+    ok = (dpos <= tol and n_kf == min(saved, sys_.kf_store.capacity)
+          and n_kf >= 1 and len(sys_.pose_log.meas) == N_SYS - 1
+          and len(read_ms) == N_SYS - 1
+          and bool(np.all(np.isfinite(costs))) and snap_ok
+          and sys_launches["detect_candidates_cuda"] == N_SYS)
+    # frames 6 on (outs[j] is frame j + 1)
+    diff = [a - b for a, b in zip(sys_ms[5:], step_ms[5:])]
+    emit({"phase": "vosystem", "ok": ok, "frames": N_SYS,
+          "launches": sys_launches, "max_abs_pos_diff_vs_phase4": dpos,
+          "tolerance": tol, "kf_saved": saved, "kf_store_count": n_kf,
+          "pose_log_meas": len(sys_.pose_log.meas),
+          "pose_graph_costs": costs.tolist(), "snapshot_ok": snap_ok,
+          "host_read_ms_median": statistics.median(read_ms[5:]),
+          "host_read_ms_max": max(read_ms[5:]),
+          "ms_per_frame_median": statistics.median(sys_ms[5:]),
+          "step_donated_ms_per_frame_median": statistics.median(step_ms[5:]),
+          "paired_diff_ms_median": statistics.median(diff),
+          "timing": "host clock, frames 6 on: process_frame and "
+                    "step_donated (twin frontend) in turns each frame, "
+                    "each + synchronize; the host read alone after a "
+                    "synchronize", "card": smi})
+    return sys_launches, ok
 
 
 def main():
@@ -943,8 +1292,17 @@ def main():
         return 1
 
     # ---- 10-10d. the visual-inertial EuRoC path -------------------------
-    vi_launches, ok10 = vi_path(smi)
+    vi_dir, pos_true, write_s = write_fixture()
+    vi_launches, ok10 = vi_path(smi, vi_dir, pos_true, write_s)
     if not ok10:
+        return 1
+
+    # ---- 11-11d. the stereo EuRoC path, 11e. VOSystem --------------------
+    st_launches, ok11 = stereo_path(smi, vi_dir, pos_true)
+    if not ok11:
+        return 1
+    sys_launches, ok11e = vosystem_phase(smi, p, gpu_frames, ts, pos)
+    if not ok11e:
         return 1
 
     # ---- 9. kernel list -----------------------------------------------
@@ -967,7 +1325,10 @@ def main():
             "bench": bench_launches["detect_candidates_cuda"],
             "vi_main": vi_launches["vi_main"]["detect_candidates_cuda"],
             "vi_run_vo": vi_launches["vi_run_vo"][
-                "detect_candidates_cuda"]}}, {
+                "detect_candidates_cuda"],
+            **{k: v["detect_candidates_cuda"]
+               for k, v in st_launches.items()},
+            "vosystem": sys_launches["detect_candidates_cuda"]}}, {
         "name": "build_scale_space", "route": "cuda",
         "source": "rebvo_tpu_torch/csrc/build_scale_space.cu",
         "replaces": "rebvo_tpu/kernels/pallas_scale_space.py:276",
@@ -980,7 +1341,9 @@ def main():
         "launches_by_path": {
             "main_path": main_launches["build_scale_space_cuda"],
             "bench": bench_launches["build_scale_space_cuda"],
-            "vi_main": vi_launches["vi_main"]["build_scale_space_cuda"]}}]})
+            "vi_main": vi_launches["vi_main"]["build_scale_space_cuda"],
+            "stereo_main": st_launches["stereo_main"][
+                "build_scale_space_cuda"]}}]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,
                                  "count": torch.cuda.device_count()}})

@@ -9,6 +9,10 @@ Examples:
     python -m rebvo_tpu_torch.apps.run_vo --euroc /data/MH_01_easy/mav0 \\
         --imu --out-dir ./out
 
+    # EuRoC directory, stereo (cam0 + cam1), with or without --imu
+    python -m rebvo_tpu_torch.apps.run_vo --euroc /data/MH_01_easy/mav0 \\
+        --stereo --imu
+
     # the dataset a REBVO-format config names (DataSetDir/DataSetFile)
     python -m rebvo_tpu_torch.apps.run_vo --config GlobalConfig
 
@@ -25,9 +29,13 @@ included; `--render` (the port's own pinhole renderer) zeroes the
 distortion instead, since its frames come from an ideal pinhole camera.
 In IMU mode (`--imu` or `ImuMode`) a frame with an IMU window runs
 `step_imu_donated`, one without (`--synthetic`, `--render`) the mono
-step; `--chunk` is not used in IMU mode, as in the JAX package. The
-other modes of the JAX package's run_vo are not ported yet; their flags
-fail with the ROADMAP item that will port them.
+step. In stereo mode (`--stereo` or `StereoAvaiable`) a dataset's cam1
+stream is paired with cam0 and undistorted through cam1's own map; a
+frame whose pair was dropped, and every `--synthetic` or `--render`
+frame, runs without the pair. `--chunk` is used only where no IMU
+window or pair frame is read, as in the JAX package. The other modes of the JAX
+package's run_vo are not ported yet; their flags fail with the ROADMAP
+item that will port them.
 """
 
 from __future__ import annotations
@@ -38,8 +46,7 @@ import sys
 import time
 
 _NOT_PORTED = {
-    "stereo": "stereo mode: ROADMAP M11",
-    "kf_every": "the keyframe store (backend/keyframe): ROADMAP M14",
+    "kf_every": "the offline-BA keyframe dump: ROADMAP M14",
     "save_video": "video saving (io/video): ROADMAP M13",
     "interactive": "the interactive command loop: ROADMAP M13",
 }
@@ -59,7 +66,9 @@ def main(argv=None):
     ap.add_argument("--max-frames", type=int, default=0)
     ap.add_argument("--cpu", action="store_true",
                     help="run on the CPU (plain versions of the kernels)")
-    ap.add_argument("--stereo", action="store_true")
+    ap.add_argument("--stereo", action="store_true",
+                    help="stereo mode (StereoAvaiable=1): pairs the cam1 "
+                         "stream")
     ap.add_argument("--chunk", type=int, default=0,
                     help="step N frames per call (VOFrontend.step_scan); "
                          "mono only")
@@ -88,6 +97,8 @@ def main(argv=None):
     params = load_config(args.config) if args.config else REBVOParameters()
     if args.imu:
         params = params.replace(ImuMode=2)
+    if args.stereo:
+        params = params.replace(StereoAvaiable=1)
     if not (args.synthetic or args.render or args.euroc
             or params.DataSetFile):
         ap.error("give --synthetic N, --render N, --euroc DIR, or a "
@@ -111,10 +122,12 @@ def main(argv=None):
     elif args.euroc:
         seq = DatasetSequence.euroc(
             args.euroc, with_imu=bool(params.ImuMode),
+            stereo=bool(params.StereoAvaiable),
             window_size=imu_window_size(params),
             time_desinc=params.TimeDesinc)
     else:
         seq = DatasetSequence.from_params(params)
+    stereo = isinstance(seq, DatasetSequence) and seq.stereo
     n_total = len(seq)
     if args.max_frames:
         n_total = min(n_total, args.max_frames)
@@ -126,6 +139,8 @@ def main(argv=None):
     fe = VOFrontend(params, device=device)
     umap = (build_undistort_map(fe.cam, device=device)
             if params.useUndistort else None)
+    umap_pair = (build_undistort_map(fe.cam_pair, device=device)
+                 if stereo and params.useUndistort else None)
     # Camera->IMU extrinsics (the reference applies them inside the IMU
     # integration, imugrabber.cpp:135-160,217-250), as float32
     R_c2i = T_c2i = None
@@ -133,19 +148,28 @@ def main(argv=None):
         R_np, T_np = read_cam_imu_se3(params.CamImuSE3File)
         R_c2i = torch.as_tensor(R_np, dtype=torch.float32).to(device)
         T_c2i = torch.as_tensor(T_np, dtype=torch.float32).to(device)
-    if args.chunk > 1 and params.ImuMode:
-        print("run_vo: --chunk is not used in IMU mode", file=sys.stderr)
-    chunk = [] if args.chunk > 1 and not params.ImuMode else None
+    mono = not (params.ImuMode or stereo)
+    if args.chunk > 1 and not mono:
+        print("run_vo: --chunk is used only in mono vision-only runs",
+              file=sys.stderr)
+    chunk = [] if args.chunk > 1 and mono else None
 
     state = fe.init()
     n_done = 0
     t_start = time.perf_counter()
-    for t, frame, win in seq:
+    for item in seq:
+        t, frame, win = item[:3]
+        # the pair is None when the cam1 stream dropped this frame
+        pair = item[3] if stereo else None
         frame = torch.as_tensor(frame, dtype=torch.float32).to(device)
         if umap is not None:
             frame = apply_undistort(umap, frame)
+        if pair is not None:
+            pair = torch.as_tensor(pair, dtype=torch.float32).to(device)
+            if umap_pair is not None:
+                pair = apply_undistort(umap_pair, pair)
         if n_done == 0:
-            state = fe.bootstrap(state, frame, t)
+            state = fe.bootstrap(state, frame, t, pair)
         elif chunk is not None:
             chunk.append((frame, t))
             if len(chunk) == args.chunk:
@@ -156,9 +180,9 @@ def main(argv=None):
         elif params.ImuMode and win is not None:
             # donated steps: the previous state's buffers are reused
             state, _ = fe.step_imu_donated(state, frame, t, win, R_c2i,
-                                           T_c2i)
+                                           T_c2i, pair)
         else:
-            state, _ = fe.step_donated(state, frame, t)
+            state, _ = fe.step_donated(state, frame, t, pair)
         n_done += 1
         if n_done % 50 == 0:
             print(f"frame {n_done}", flush=True)

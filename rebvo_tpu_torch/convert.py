@@ -16,6 +16,10 @@ one IMU window (gyro, accel, count, tsample), so a JAX window and a port
 window carry the same samples:
 
     win_t = imu_window_from_numpy(jax.tree_util.tree_map(np.asarray, win))
+
+The system's records carry over the same way: `keyframe_store_from_numpy`
+takes a numpy KeyframeStore tree, and `pose_log_from_jax` copies any
+pose log whose measurements are dataclasses with OdometryMeas's fields.
 """
 
 from __future__ import annotations
@@ -25,6 +29,8 @@ import dataclasses
 import numpy as np
 import torch
 
+from rebvo_tpu_torch.backend.keyframe import KeyframeStore
+from rebvo_tpu_torch.backend.posegraph import OdometryMeas, PoseGraphLog
 from rebvo_tpu_torch.config import REBVOParameters
 from rebvo_tpu_torch.frontend.imu import ImuWindow, ScaleWindows
 from rebvo_tpu_torch.frontend.kf_tracking import KFCarry
@@ -36,6 +42,7 @@ _NODES = {
     VOState: {"klm": KeylineMap, "imu": ImuCarry, "kf": KFCarry},
     ImuCarry: {"windows": ScaleWindows},
     KFCarry: {"klm": KeylineMap},
+    KeyframeStore: {"klm": KeylineMap},
 }
 
 
@@ -69,6 +76,17 @@ def state_from_numpy(tree, device="cuda") -> VOState:
 def imu_window_from_numpy(tree, device="cuda") -> ImuWindow:
     """A port ImuWindow from a numpy window (see the module note)."""
     return _build(ImuWindow, tree, device)
+
+
+def keyframe_store_from_numpy(tree, device="cuda") -> KeyframeStore:
+    """A port KeyframeStore from a numpy keyframe-store tree."""
+    return _build(KeyframeStore, tree, device)
+
+
+def pose_log_from_jax(log) -> PoseGraphLog:
+    """A port PoseGraphLog with the same measurements (copies)."""
+    return PoseGraphLog(meas=[OdometryMeas(**dataclasses.asdict(m))
+                              for m in log.meas])
 
 
 def state_to_numpy(state):

@@ -1,7 +1,9 @@
 """Per-frame state logging (PyTorch counterpart of rebvo_tpu/io/logger.py;
 reference src/rebvo/rebvo_third_t.cpp:259-313): the TUM trajectory and
 the Matlab-format `.m` log, built from the step's device nav-log ring in
-one transfer at the end of a run.
+one transfer at the end of a run (`from_device_log`), or from the frame
+outputs pushed one by one (`push`, VOSystem's path), which are copied to
+the host only when the rows are first read.
 """
 
 from __future__ import annotations
@@ -19,10 +21,32 @@ class RunLogger:
     """Holds per-frame nav rows (the RunLogger row-dict schema)."""
 
     def __init__(self):
+        self._pending: List = []    # (FrameOutput, tproc) not yet on host
         self._rows: List[dict] = []
+
+    def push(self, out, tproc=(0.0, 0.0, 0.0)) -> None:
+        """Record one FrameOutput without a host sync; `tproc` holds the
+        host-side stage times (the reference's dtp0/dtp1/TProc2,
+        rebvo_third_t.cpp:303-305)."""
+        self._pending.append((out, tproc))
+
+    def _drain(self) -> None:
+        from rebvo_tpu_torch.frontend.step import pack_nav_row, \
+            unpack_nav_rows
+        if not self._pending:
+            return
+        host = torch.stack([pack_nav_row(o) for o, _ in self._pending])
+        rows = unpack_nav_rows(host.detach().cpu().numpy())
+        for r, (out, tp) in zip(rows, self._pending):
+            r["Pose"] = out.nav.Pose.detach().cpu().numpy()
+            r["Rot"] = out.nav.Rot.detach().cpu().numpy()
+            r["tproc"] = tuple(tp)
+        self._pending = []
+        self._rows.extend(rows)
 
     @property
     def rows(self) -> List[dict]:
+        self._drain()
         return self._rows
 
     @staticmethod
@@ -52,7 +76,7 @@ class RunLogger:
         return lg
 
     def __len__(self) -> int:
-        return len(self._rows)
+        return len(self._pending) + len(self._rows)
 
     # -- TUM trajectory (rebvo_third_t.cpp:311) --
 

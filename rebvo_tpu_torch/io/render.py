@@ -236,37 +236,20 @@ IMU_HZ = 200.0                # write_euroc_vi's IMU rate (EuRoC's)
 T0_NS = 1_000_000_000         # its first frame's time stamp
 
 
-def write_euroc_vi(params, n_frames: int, out_dir: str, seed: int = 0,
-                   workers: int = 1):
-    """Write a EuRoC `mav0` directory for a visual-inertial run at the
-    config's camera: `cam0/data.csv`, `cam0/data/<ns>.png` (8-bit grey)
-    and `imu0/data.csv` at IMU_HZ, gravity +y in the world, IMU frame =
-    camera frame.
+def pair_poses(params, pos, rots):
+    """World poses of cam1 for cam0 centres `pos` [N, 3] and rotations
+    `rots` [N, 3, 3] (world-from-camera), from the config's cam0 -> cam1
+    extrinsics (X1 = R01 X0 + t01): R_wc1 = R_wc0 R01^T, C1 = C0 -
+    R_wc1 t01. Returns (pos1, rots1)."""
+    R01, t01 = params.stereo_extrinsics()
+    rots1 = rots @ R01.T
+    return pos - np.einsum("nij,j->ni", rots1, t01), rots1
 
-    The camera holds still for InitBiasFrameNum + 2 frames (the gyro-bias
-    init averages them), then moves on `vi_lateral_path`. The IMU is the
-    exact derivative of that path: body rate (0, yaw', 0) and specific
-    force R^T (a_w - g_w). Each frame is a billboard scene rendered by an
-    ideal pinhole camera of focal zf_mean, oversized by a margin, then
-    resampled at every pixel of the config's camera through the exact
-    inverse of its distortion (radial-tangential, per-axis focal), so
-    the pipeline's undistortion undoes a real distortion. `workers`
-    threads render and write frames at once (numpy and zlib release the
-    GIL). Returns (frame times in s, camera positions [n, 3])."""
-    import os
-    from concurrent.futures import ThreadPoolExecutor
 
-    from rebvo_tpu_torch.core.geometry import CameraModel
-    from rebvo_tpu_torch.io.png import write_png
-
-    cam = CameraModel.from_params(params)
-    H, W = params.ImageHeight, params.ImageWidth
-    fps = params.config_fps
-    t_hold = (params.InitBiasFrameNum + 2) / fps
-    t_frames = np.arange(n_frames) / fps
-    pos, _, yaw, _ = vi_lateral_path(t_frames, t_hold)
-    rots = np.stack([_yaw_R(a) for a in yaw])
-
+def _resample_map(cam, H, W):
+    """For each pixel of `cam`'s distorted H x W image, where it samples
+    an ideal pinhole image of focal zfm oversized by a margin m on every
+    side: (m, x0, y0, fx, fy) for bilinear interpolation."""
     ys, xs = np.meshgrid(np.arange(H, dtype=np.float64),
                          np.arange(W, dtype=np.float64), indexing="ij")
     ux, uy = _undistort_np(xs - cam.cx, ys - cam.cy, cam)
@@ -275,31 +258,74 @@ def write_euroc_vi(params, n_frames: int, out_dir: str, seed: int = 0,
     sx = np.clip(ux + cam.cx + m, 0, W + 2 * m - 1.001)
     sy = np.clip(uy + cam.cy + m, 0, H + 2 * m - 1.001)
     x0, y0 = sx.astype(np.int64), sy.astype(np.int64)
-    fx, fy = sx - x0, sy - y0
+    return m, x0, y0, sx - x0, sy - y0
 
-    cam_dir = os.path.join(out_dir, "cam0", "data")
-    imu_dir = os.path.join(out_dir, "imu0")
-    os.makedirs(cam_dir, exist_ok=True)
-    os.makedirs(imu_dir, exist_ok=True)
+
+def write_euroc_vi(params, n_frames: int, out_dir: str, seed: int = 0,
+                   workers: int = 1, stereo: bool = False):
+    """Write a EuRoC `mav0` directory for a visual-inertial run at the
+    config's camera: `cam0/data.csv`, `cam0/data/<ns>.png` (8-bit grey)
+    and `imu0/data.csv` at IMU_HZ, gravity +y in the world, IMU frame =
+    camera frame; with `stereo`, also `cam1/data.csv` and
+    `cam1/data/<ns>.png` at the same time stamps.
+
+    The camera holds still for InitBiasFrameNum + 2 frames (the gyro-bias
+    init averages them), then moves on `vi_lateral_path`. The IMU is the
+    exact derivative of that path: body rate (0, yaw', 0) and specific
+    force R^T (a_w - g_w). Each frame is a billboard scene rendered by an
+    ideal pinhole camera of focal zf_mean, oversized by a margin, then
+    resampled at every pixel of the config's camera through the exact
+    inverse of its distortion (radial-tangential, per-axis focal), so
+    the pipeline's undistortion undoes a real distortion. A cam1 frame is
+    rendered from cam1's pose (`pair_poses`) and resampled through cam1's
+    own (`Stereo*`) intrinsics and distortion. `workers` threads render
+    and write frames at once (numpy and zlib release the GIL). Returns
+    (frame times in s, cam0 positions [n, 3])."""
+    import os
+    from concurrent.futures import ThreadPoolExecutor
+
+    from rebvo_tpu_torch.core.geometry import CameraModel
+    from rebvo_tpu_torch.io.png import write_png
+
+    H, W = params.ImageHeight, params.ImageWidth
+    fps = params.config_fps
+    t_hold = (params.InitBiasFrameNum + 2) / fps
+    t_frames = np.arange(n_frames) / fps
+    pos, _, yaw, _ = vi_lateral_path(t_frames, t_hold)
+    rots = np.stack([_yaw_R(a) for a in yaw])
+    # (directory, camera, camera centres, rotations) per stream
+    streams = [("cam0", CameraModel.from_params(params), pos, rots)]
+    if stereo:
+        streams.append(("cam1", CameraModel.from_params(params, stereo=True))
+                       + pair_poses(params, pos, rots))
+    maps = [_resample_map(cam, H, W) for _, cam, _, _ in streams]
     stamps = [T0_NS + int(round(t * 1e9)) for t in t_frames]
+    for name, _, _, _ in streams:
+        os.makedirs(os.path.join(out_dir, name, "data"), exist_ok=True)
+    imu_dir = os.path.join(out_dir, "imu0")
+    os.makedirs(imu_dir, exist_ok=True)
 
-    def frame(i):
+    def frame(k):
+        (name, cam, c, r), (m, x0, y0, fx, fy) = streams[k[0]], maps[k[0]]
+        i = k[1]
         img = render_billboards_seq(
             1, width=W + 2 * m, height=H + 2 * m, zf=cam.zfm,
-            cx=cam.cx + m, cy=cam.cy + m, cam_positions=pos[i:i + 1],
-            cam_rotations=rots[i:i + 1], seed=seed, ss=1)[0]
+            cx=cam.cx + m, cy=cam.cy + m, cam_positions=c[i:i + 1],
+            cam_rotations=r[i:i + 1], seed=seed, ss=1)[0]
         d = (img[y0, x0] * (1 - fx) * (1 - fy) + img[y0, x0 + 1] * fx *
              (1 - fy) + img[y0 + 1, x0] * (1 - fx) * fy +
              img[y0 + 1, x0 + 1] * fx * fy)
-        write_png(os.path.join(cam_dir, f"{stamps[i]}.png"),
+        write_png(os.path.join(out_dir, name, "data", f"{stamps[i]}.png"),
                   np.clip(np.round(d / 3.0), 0, 255).astype(np.uint8))
 
     with ThreadPoolExecutor(max_workers=max(workers, 1)) as pool:
-        list(pool.map(frame, range(n_frames)))
+        list(pool.map(frame, [(s, i) for s in range(len(streams))
+                              for i in range(n_frames)]))
     lines = ["#timestamp [ns],filename"] + [f"{ns},{ns}.png"
                                            for ns in stamps]
-    with open(os.path.join(out_dir, "cam0", "data.csv"), "w") as fh:
-        fh.write("\n".join(lines) + "\n")
+    for name, _, _, _ in streams:
+        with open(os.path.join(out_dir, name, "data.csv"), "w") as fh:
+            fh.write("\n".join(lines) + "\n")
 
     # IMU from 0.1 s before the first frame to past the last one
     tk = np.arange(-int(0.1 * IMU_HZ), int((t_frames[-1] + 0.05) * IMU_HZ)

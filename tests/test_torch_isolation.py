@@ -44,6 +44,21 @@ win = slice_imu_windows(imu, [0.0, 0.05, 0.1], window_size=16)[2]
 st, out = fe.step_imu(st, fr[2], 0.1, win)
 assert np.all(np.isfinite(out.nav.Pos.numpy()))
 assert int(win.count) == 10
+# a stereo step (the cam1 frame: the cam0 frame shifted 2 px) and a
+# VOSystem frame
+from rebvo_tpu_torch.system import VOSystem
+import rebvo_tpu_torch.backend.posegraph, rebvo_tpu_torch.kernels.stereo
+ps = p.replace(ImuMode=0, StereoAvaiable=1, StereoPPx=48.0, StereoPPy=32.0)
+fs = VOFrontend(ps, device="cpu")
+pair = [np.roll(f, -2, axis=1) for f in fr]
+st = fs.bootstrap(fs.init(), fr[0], 0.0, pair[0])
+st, out = fs.step(st, fr[1], 0.05, pair[1])
+assert np.all(np.isfinite(out.nav.Pos.numpy()))
+assert int(st.last_kl_num_pair) > 0
+sys_ = VOSystem(ps, device="cpu")
+for i in range(2):
+    out = sys_.process_frame(fr[i], 0.05 * i, frame_pair=pair[i])
+assert len(sys_.pose_log.meas) == 1 and sys_.kf_store.capacity == 64
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith(("jax.", "jaxlib"))
              or m == "rebvo_tpu" or m.startswith("rebvo_tpu."))
@@ -67,10 +82,10 @@ _FORBIDDEN = re.compile(
 
 @pytest.mark.parametrize("path", sorted(
     str(p.relative_to(ROOT)) for p in PKG.rglob("*.py")) +
-    ["chip_smoke.py"])
+    ["chip_smoke.py", "tools/kernel_ab.py", "tools/stereo_bars.py"])
 def test_source_imports_no_jax(path):
-    """No module of the port (nor chip_smoke.py) imports jax, jaxlib or
-    rebvo_tpu, even lazily inside a function."""
+    """No module of the port (nor chip_smoke.py and the port's tools)
+    imports jax, jaxlib or rebvo_tpu, even lazily inside a function."""
     src = (ROOT / path).read_text()
     hits = [m.group(0).strip() for m in _FORBIDDEN.finditer(src)]
     assert not hits, hits

@@ -152,16 +152,17 @@ def test_nav_log_ring_matches_outputs(runs):
 
 
 def test_unported_modes_raise():
-    """Stereo (ROADMAP M11) is not ported: a stereo config, and a pair
-    frame given to the mono or the visual-inertial step, raise."""
+    """A stereo config builds a stereo frontend (its pair camera and
+    extrinsics on the device); a pair frame given to a mono frontend's
+    mono or visual-inertial step raises rather than being dropped."""
     p = small_params()
-    with pytest.raises(NotImplementedError, match="M11"):
-        TorchFrontend(p.replace(StereoAvaiable=1), device="cpu")
+    fe_st = TorchFrontend(p.replace(StereoAvaiable=1), device="cpu")
+    assert fe_st.stereo and fe_st._R01.shape == (3, 3)
     fe = TorchFrontend(p, device="cpu")
     for step in (fe.step, fe.step_imu, fe.step_imu_donated):
         args = (None, None, None) + ((None,) if "imu" in step.__name__
                                      else ())
-        with pytest.raises(NotImplementedError, match="M11"):
+        with pytest.raises(ValueError, match="StereoAvaiable=0"):
             step(*args, frame_pair=np.zeros((2, 2), np.float32))
 
 
@@ -169,7 +170,8 @@ def test_run_vo_synthetic_writes_tum(tmp_path):
     """run_vo on 6 procedural frames on the CPU: frame 0 bootstraps and
     each later frame logs one row, as in the JAX package's run_vo. With
     --imu the synthetic frames carry no IMU window, so they run the mono
-    step, as in the JAX package; --stereo exits (ROADMAP M11)."""
+    step, and with --stereo no pair frame, so they run without one, as
+    in the JAX package."""
     from rebvo_tpu_torch.apps import run_vo
     cfg = tmp_path / "small.cfg"
     cfg.write_text("&Camera\nImageWidth=188\nImageHeight=120\nZfX=100\n"
@@ -185,5 +187,8 @@ def test_run_vo_synthetic_writes_tum(tmp_path):
                  "--out-dir", str(imu_dir)])
     t, pos, _ = read_tum(os.path.join(imu_dir, "rebvo_tray.txt"))
     assert len(t) == 2 and np.all(np.isfinite(pos))
-    with pytest.raises(SystemExit):
-        run_vo.main(["--cpu", "--stereo", "--synthetic", "3"])
+    st_dir = tmp_path / "stereo"
+    run_vo.main(["--cpu", "--stereo", "--synthetic", "3", "--config",
+                 str(cfg), "--out-dir", str(st_dir)])
+    t, pos, _ = read_tum(os.path.join(st_dir, "rebvo_tray.txt"))
+    assert len(t) == 2 and np.all(np.isfinite(pos))
