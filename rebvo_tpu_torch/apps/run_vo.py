@@ -33,20 +33,25 @@ step. In stereo mode (`--stereo` or `StereoAvaiable`) a dataset's cam1
 stream is paired with cam0 and undistorted through cam1's own map; a
 frame whose pair was dropped, and every `--synthetic` or `--render`
 frame, runs without the pair. `--chunk` is used only where no IMU
-window or pair frame is read, as in the JAX package. The other modes of the JAX
-package's run_vo are not ported yet; their flags fail with the ROADMAP
-item that will port them.
+window or pair frame is read and no keyframe is captured, as in the JAX
+package. `--kf-every N` pushes the state's edge map and pose into a
+keyframe store on the device every N frames (no host read mid-run) and
+writes it at exit to `<out-dir>/kf_list.npz` or `--save-kf PATH`: the
+input of `run_ba`. The last line of standard output gives each kernel's
+launches in the run, as JSON after `kernel_launches=`. The other modes of
+the JAX package's run_vo are not ported yet; their flags fail with the
+ROADMAP item that will port them.
 """
 
 from __future__ import annotations
 
 import argparse
+import json
 import os
 import sys
 import time
 
 _NOT_PORTED = {
-    "kf_every": "the offline-BA keyframe dump: ROADMAP M14",
     "save_video": "video saving (io/video): ROADMAP M13",
     "interactive": "the interactive command loop: ROADMAP M13",
 }
@@ -72,7 +77,13 @@ def main(argv=None):
     ap.add_argument("--chunk", type=int, default=0,
                     help="step N frames per call (VOFrontend.step_scan); "
                          "mono only")
-    ap.add_argument("--kf-every", type=int, default=0)
+    ap.add_argument("--kf-every", type=int, default=0,
+                    help="push a keyframe (edge map + pose) every N frames "
+                         "into a store on the device, saved at exit: the "
+                         "offline-BA input")
+    ap.add_argument("--save-kf", default=None,
+                    help="keyframe store output path "
+                         "(default <out-dir>/kf_list.npz)")
     ap.add_argument("--save-video")
     ap.add_argument("--interactive", action="store_true")
     args = ap.parse_args(argv)
@@ -93,6 +104,7 @@ def main(argv=None):
     from rebvo_tpu_torch.io.render import render_lateral, synth_frames
     from rebvo_tpu_torch.io.undistort import (apply_undistort,
                                               build_undistort_map)
+    from rebvo_tpu_torch.kernels.cuda_scale_space import WRAPPERS
 
     params = load_config(args.config) if args.config else REBVOParameters()
     if args.imu:
@@ -148,12 +160,23 @@ def main(argv=None):
         R_np, T_np = read_cam_imu_se3(params.CamImuSE3File)
         R_c2i = torch.as_tensor(R_np, dtype=torch.float32).to(device)
         T_c2i = torch.as_tensor(T_np, dtype=torch.float32).to(device)
+    kf_store = None
+    if args.kf_every > 0:
+        from rebvo_tpu_torch.backend.keyframe import (KeyframeStore,
+                                                      push_keyframe,
+                                                      save_keyframes)
+        cap = n_total // args.kf_every + 2
+        # depths stay in the map gauge of their capture, as in the JAX
+        # package
+        kf_store = KeyframeStore.empty(cap, params.KeylineMax,
+                                       device=device)
     mono = not (params.ImuMode or stereo)
-    if args.chunk > 1 and not mono:
-        print("run_vo: --chunk is used only in mono vision-only runs",
-              file=sys.stderr)
-    chunk = [] if args.chunk > 1 and mono else None
+    if args.chunk > 1 and not (mono and kf_store is None):
+        print("run_vo: --chunk is used only in mono vision-only runs "
+              "without --kf-every", file=sys.stderr)
+    chunk = [] if args.chunk > 1 and mono and kf_store is None else None
 
+    launches0 = {fn.__name__: fn.launches for fn in WRAPPERS}
     state = fe.init()
     n_done = 0
     t_start = time.perf_counter()
@@ -183,6 +206,10 @@ def main(argv=None):
                                            T_c2i, pair)
         else:
             state, _ = fe.step_donated(state, frame, t, pair)
+        if kf_store is not None and n_done > 0 and \
+                n_done % args.kf_every == 0:
+            push_keyframe(kf_store, state.klm, state.t, state.K_scale,
+                          state.Pose, state.Pos, state.Vel)
         n_done += 1
         if n_done % 50 == 0:
             print(f"frame {n_done}", flush=True)
@@ -194,6 +221,14 @@ def main(argv=None):
     if device == "cuda":
         torch.cuda.synchronize()
     wall = time.perf_counter() - t_start
+    if kf_store is not None:
+        kf_path = args.save_kf or os.path.join(args.out_dir, "kf_list.npz")
+        save_keyframes(kf_path, kf_store)
+        n_kf = int(kf_store.count)
+        if n_kf >= cap:
+            print(f"WARNING: keyframe ring filled (capacity {cap}); "
+                  f"earliest keyframes may have been overwritten")
+        print(f"saved {n_kf} keyframes -> {kf_path}")
 
     logger = RunLogger.from_device_log(state.navlog, state.navlog_n)
     tray = os.path.join(args.out_dir, params.TrayFile)
@@ -203,6 +238,9 @@ def main(argv=None):
     print(f"processed {n_done} frames in {wall:.1f}s on {device} "
           f"({n_done / wall:.1f} fps); kl={r.get('kl_num')} "
           f"match={r.get('klm_num')}; trajectory -> {tray}")
+    print("kernel_launches=" + json.dumps(
+        {fn.__name__: fn.launches - launches0[fn.__name__]
+         for fn in WRAPPERS}), flush=True)
     return logger
 
 

@@ -18,8 +18,11 @@ window carry the same samples:
     win_t = imu_window_from_numpy(jax.tree_util.tree_map(np.asarray, win))
 
 The system's records carry over the same way: `keyframe_store_from_numpy`
-takes a numpy KeyframeStore tree, and `pose_log_from_jax` copies any
-pose log whose measurements are dataclasses with OdometryMeas's fields.
+takes a numpy KeyframeStore tree, `ba_problem_from_numpy` a numpy
+BAProblem (so a store or a problem built by the JAX package feeds the
+port's `problem_from_keyframes` and `ba_solve`), and `pose_log_from_jax`
+copies any pose log whose measurements are dataclasses with
+OdometryMeas's fields.
 """
 
 from __future__ import annotations
@@ -29,6 +32,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from rebvo_tpu_torch.backend.ba import BAProblem
 from rebvo_tpu_torch.backend.keyframe import KeyframeStore
 from rebvo_tpu_torch.backend.posegraph import OdometryMeas, PoseGraphLog
 from rebvo_tpu_torch.config import REBVOParameters
@@ -81,6 +85,11 @@ def imu_window_from_numpy(tree, device="cuda") -> ImuWindow:
 def keyframe_store_from_numpy(tree, device="cuda") -> KeyframeStore:
     """A port KeyframeStore from a numpy keyframe-store tree."""
     return _build(KeyframeStore, tree, device)
+
+
+def ba_problem_from_numpy(tree, device="cuda") -> BAProblem:
+    """A port BAProblem from a numpy BAProblem tree (same field names)."""
+    return _build(BAProblem, tree, device)
 
 
 def pose_log_from_jax(log) -> PoseGraphLog:

@@ -59,6 +59,20 @@ sys_ = VOSystem(ps, device="cpu")
 for i in range(2):
     out = sys_.process_frame(fr[i], 0.05 * i, frame_pair=pair[i])
 assert len(sys_.pose_log.meas) == 1 and sys_.kf_store.capacity == 64
+# the offline backend and the apps around it: a small BA solve, a problem
+# from the system's keyframe store
+import rebvo_tpu_torch.apps.run_ba, rebvo_tpu_torch.apps.parity
+import rebvo_tpu_torch.apps.evaluate, rebvo_tpu_torch.apps.view_map
+import torch
+from rebvo_tpu_torch.backend import ba
+R, p_true, _, prob = ba.synth_ring_problem(4, 16, 2, 200.0, device="cpu")
+_, _, _, costs = ba.ba_solve(torch.as_tensor(R),
+                             torch.as_tensor(p_true) + 0.01, prob, 200.0,
+                             iters=2)
+assert costs.shape == (2,) and bool(costs.isfinite().all())
+pb = ba.problem_from_keyframes(sys_.kf_store, 48.0, width=96, height=64,
+                               cx=48.0, cy=32.0)
+assert pb.obs_lm.shape[0] > 0
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith(("jax.", "jaxlib"))
              or m == "rebvo_tpu" or m.startswith("rebvo_tpu."))
@@ -82,7 +96,8 @@ _FORBIDDEN = re.compile(
 
 @pytest.mark.parametrize("path", sorted(
     str(p.relative_to(ROOT)) for p in PKG.rglob("*.py")) +
-    ["chip_smoke.py", "tools/kernel_ab.py", "tools/stereo_bars.py"])
+    ["chip_smoke.py", "tools/kernel_ab.py", "tools/stereo_bars.py",
+     "tools/vi_scale_cpu.py", "tools/parity_cpu.py"])
 def test_source_imports_no_jax(path):
     """No module of the port (nor chip_smoke.py and the port's tools)
     imports jax, jaxlib or rebvo_tpu, even lazily inside a function."""
