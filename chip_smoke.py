@@ -27,7 +27,8 @@ Phases, each printing one JSON line; any failure exits non-zero:
   6b. chunk   — run_vo --chunk 8 against phase 6's trajectory;
   7. cpu      — the first 8 frames of phase 4 on the CPU against the card;
   8. bench    — python -m rebvo_tpu_torch.bench, in this process (its
-                JSON line is printed as it is);
+                JSON line is printed as it is), its batched phase's
+                batched_fps and batched_fps_nokf numbers;
   10. vi_main — the visual-inertial path at the default config with
                 ImuMode=2 (752x480, KeylineMax=16384, EuRoC distortion):
                 io/render.write_euroc_vi writes 62 frames and their 200 Hz
@@ -76,10 +77,31 @@ Phases, each printing one JSON line; any failure exits non-zero:
                 on the card: `loop`, 240 frames at 752x480, --ba-every 10,
                 no reference; its ATE beside the JAX package's PARITY_r05
                 number, run_ba's JSON line, K1 once a frame;
+  13. batched — 16 rendered lanes at the default config through
+                parallel/mesh.shard_sequences on the card (one CUDA graph
+                each for the vmapped bootstrap and step): bootstrap + 10
+                steps, every step after the first under
+                set_sync_debug_mode("error"); each lane against that lane
+                stepped alone by step_donated (kl_num equal, Pos within
+                phase 7's bar); K1 launched once per batched call; device
+                activities and busy ms of one batched replay against one
+                single step's; ms per batched frame, frames/s, peak MB;
+                the ops vmap ran by its per-lane fallback; K1 at
+                [16,480,752] against its plain version, with its device ms
+                beside its bound;
+  13b. run_batch — python -m rebvo_tpu_torch.apps.run_batch --synthetic 20
+                --batch 16: its JSON line and 16 TUM files that parse;
+  14. distributed — ba_solve_sharded with 4 landmark blocks in this
+                process on phase 12's problem against ba_solve, both at
+                the floor; run_ba --shards 4 against --shards 1 on phase
+                12b's keyframe store, both at the floor; and python -m
+                rebvo_tpu_torch.apps.run_multihost --nprocs 2 --check-ba
+                --backend gloo (the two ranks share the card): the
+                all-reduce check and the sharded BA's parity;
   9. kernels  — the kernel list, with K1's launches on every path.
-Each path (phases 4, 4b, 6, 6b, 8, 10, 10c, 11, 11c, 11e, 12b) starts with
-every kernel's launch count at 0 and reports the counts it ends with. Each
-phase line carries `elapsed_s`, the seconds since the script started.
+Each path (phases 4, 4b, 6, 6b, 8, 10, 10c, 11, 11c, 11e, 12b, 13) starts
+with every kernel's launch count at 0 and reports the counts it ends
+with. Each phase line carries `elapsed_s`, the seconds since the script started.
 Then the nvidia-smi line, and last {"ok": true, "device": {...}}. Longer
 artefacts go to chiprun_out/smoke/.
 """
@@ -153,6 +175,13 @@ BA_ATE_DROP = 0.3        # the poses' ATE to the truth, share of the start's
 # after a similarity alignment there (2.2e-6 m after 6); the bar is 20x
 # that, 1e-5 of the ring's 1 m diameter
 BA_ITERS_FLOOR, BA_CARD_CPU_ATE = 8, 1e-5
+# phase 13: lanes, batched steps after the bootstrap
+N_LANES, N_BATCH_STEPS = 16, 10
+# phase 14: the sharded solve's blocks; the parity bars of run_multihost
+# (the JAX worker's: initial cost exact, floors within f32 noise) and of
+# the floors, relative to the first cost
+BA_SHARDS, BA_SHARD_RTOL, MULTIHOST_PARITY = 4, 1e-3, 1e-3
+BA_STORE_ITERS = 40      # run_ba's iterations on 12b's store
 # phase 12b: the `loop` row of PARITY_r05 (the JAX package, on the CPU):
 # ATE 0.0265 m over frames 40-239; the smoke's bar is twice it (the
 # table's tolerance, PERF.md, is 25% or 5 mm)
@@ -1050,6 +1079,246 @@ def parity_phase(smi):
     return k1, ok
 
 
+def batched_phase(smi, p, kw):
+    """Phase 13: the batched multi-sequence step on the card. Returns
+    (K1 launches, K1's [16,480,752] numbers, ok)."""
+    import warnings
+
+    from rebvo_tpu_torch.bench import rendered_lanes
+    from rebvo_tpu_torch.parallel.mesh import shard_sequences, stack_lanes
+    dev = torch.device("cuda")
+    n = N_BATCH_STEPS + 1
+    t0 = time.perf_counter()
+    lanes = torch.as_tensor(rendered_lanes(p, n, N_LANES), device=dev)
+    render_s = time.perf_counter() - t0
+    ts = [torch.full((N_LANES,), i / p.config_fps, device=dev)
+          for i in range(n)]
+    fe = VOFrontend(p, device="cuda")
+    bootv = shard_sequences(fe.bootstrap, [dev])
+    stepv = shard_sequences(fe.step_donated, [dev])
+    init = stack_lanes(fe.init(), N_LANES)
+    # the captures (they sync), from a throw-away state; vmap warns once
+    # for each op it runs by its per-lane fallback
+    torch._C._functorch._set_vmap_fallback_warning_enabled(True)
+    t0 = time.perf_counter()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        st = bootv([init], [lanes[:, 0]], [ts[0]])
+        stepv(st, [lanes[:, 1]], [ts[1]])
+    torch._C._functorch._set_vmap_fallback_warning_enabled(False)
+    capture_s = time.perf_counter() - t0
+    fallback = sorted({m.group(1) for w in caught
+                       for m in [re.search(r"batching rule for (\S+?)\.",
+                                           str(w.message))] if m})
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_launches()
+    states = bootv([init], [lanes[:, 0]], [ts[0]])
+    outs = []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for i in range(1, n):
+            states, out = stepv(states, [lanes[:, i]], [ts[i]])
+            outs.append(out[0])
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    got = read_launches()
+    peak_mb = torch.cuda.max_memory_allocated() / 2 ** 20
+    bpos = torch.stack([o.nav.Pos for o in outs], 1).cpu().numpy()
+    bkl = torch.stack([o.nav.kl_num for o in outs], 1).cpu().numpy()
+
+    # each lane alone, step_donated on its own frontend
+    fe1 = VOFrontend(p, device="cuda")
+    lanes_res, ok_lanes = [], True
+    for b in range(N_LANES):
+        st = fe1.bootstrap(fe1.init(), lanes[b, 0], ts[0][b])
+        pos, kl = [], []
+        for i in range(1, n):
+            st, o = fe1.step_donated(st, lanes[b, i], ts[i][b])
+            pos.append(o.nav.Pos.cpu().numpy())
+            kl.append(int(o.nav.kl_num))
+        if b == 0:
+            st0 = st
+        pos = np.stack(pos)
+        tol = pos_tolerance(pos)
+        dpos = float(np.abs(bpos[b] - pos).max())
+        ok_b = kl == bkl[b].tolist() and dpos <= tol
+        ok_lanes = ok_lanes and ok_b
+        lanes_res.append({"lane": b, "ok": ok_b,
+                          "kl_equal": kl == bkl[b].tolist(),
+                          "max_abs_pos_diff": dpos, "tolerance": tol})
+
+    # one batched replay against one single step of the same input, lane
+    # 0's state after the same steps and its frame, under the profiler
+    _, acts_b = _device_timeline(_profiled(
+        lambda: stepv(states, [lanes[:, 1]], [ts[1]])))
+    _, acts_1 = _device_timeline(_profiled(
+        lambda: fe1.step_donated(st0, lanes[0, 1], ts[1][0])))
+    busy_b = sum(a[1] - a[0] for a in acts_b) / 1e3
+    busy_1 = sum(a[1] - a[0] for a in acts_1) / 1e3
+
+    # K1 at [16, 480, 752] against its plain version
+    x = lanes[:, 1].contiguous()
+    th = torch.full((N_LANES,), p.DetectorThresh, device=dev)
+    ck = cs.detect_candidates_cuda(x, th, **kw)
+    cp = cs.detect_candidates_plain(x, th, **kw)
+    torch.cuda.synchronize()
+    mism, err, err_all = compare(ck, cp)
+    l2 = torch.empty(64 * 2 ** 20 // 4, dtype=torch.float32, device=dev)
+    k_ms = device_ms(lambda: cs.detect_candidates_cuda(x, th, **kw), 50,
+                     l2.zero_)
+    plain_ms = device_ms(lambda: cs.detect_candidates_plain(x, th, **kw),
+                         10, l2.zero_)
+    del l2
+    sizes0, sizes1, _, _ = scale_space_plan(p.Sigma0, p.KSigma, 3)
+    t_bytes = x.numel() * (4 + 1 + 5 * 4) / H100_MEM_BYTES_PER_S * 1e3
+    t_ops = x.numel() * k1_ops_per_pixel(
+        sizes0, sizes1, p.DetectorPlaneFitSize) / H100_F32_FLOPS * 1e3
+    bound_ms = max(t_bytes, t_ops)
+    k1 = {"shape": list(x.shape), "mask_mismatch": mism, "max_abs_err": err,
+          "max_abs_err_all_pixels": err_all, "kernel_ms": k_ms,
+          "plain_ms": plain_ms, "bound_ms": bound_ms,
+          "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+          "x_bound": k_ms / bound_ms}
+    k1_launches = got["detect_candidates_cuda"]
+    ok = (ok_lanes and k1_launches == n and mism == 0 and err < 5e-3
+          and bool(np.all(np.isfinite(bpos))))
+    frames = N_LANES * N_BATCH_STEPS
+    emit({"phase": "batched", "ok": ok, "lanes": N_LANES,
+          "steps": N_BATCH_STEPS, "launches": got,
+          "k1_launches_expected": n, "lane_checks": lanes_res,
+          "ms_per_batched_step": wall_ms / N_BATCH_STEPS,
+          "ms_per_frame": wall_ms / frames,
+          "frames_per_s": frames / (wall_ms / 1e3),
+          "peak_device_mb": peak_mb,
+          "replay_device_activities": len(acts_b),
+          "replay_device_busy_ms": busy_b,
+          "single_step_device_activities": len(acts_1),
+          "single_step_device_busy_ms": busy_1,
+          "activity_ratio": len(acts_b) / max(len(acts_1), 1),
+          "busy_ratio": busy_b / max(busy_1, 1e-9),
+          "vmap_fallback_ops": fallback, "capture_s": capture_s,
+          "render_s": render_s, "k1_b16": k1,
+          "timing": "host clock around the 10 batched calls (input copy, "
+                    "replay, output clones) + synchronize; activities "
+                    "and busy ms by torch.profiler over one call each",
+          "card": smi})
+    return k1_launches, k1, ok
+
+
+def run_batch_phase(smi):
+    """Phase 13b: the run_batch CLI on the card. Returns ok."""
+    out_dir = os.path.join(OUT, "run_batch")
+    shutil.rmtree(out_dir, ignore_errors=True)
+    t0 = time.perf_counter()
+    r = subprocess.run([sys.executable, "-m",
+                        "rebvo_tpu_torch.apps.run_batch", "--synthetic",
+                        "20", "--batch", str(N_LANES), "--out-dir", out_dir],
+                       capture_output=True, text=True, timeout=600)
+    wall = time.perf_counter() - t0
+    line, rows = {}, []
+    if r.returncode == 0:
+        line = json.loads(r.stdout.strip().splitlines()[-1])
+        for b in range(N_LANES):
+            tum = np.loadtxt(os.path.join(out_dir, f"tray_seq{b}.txt"))
+            rows.append(int(tum.shape[0]) if np.all(np.isfinite(tum))
+                        else -1)
+    ok = (r.returncode == 0 and line.get("sequences") == N_LANES
+          and rows == [19] * N_LANES)
+    emit({"phase": "run_batch", "ok": ok, "rc": r.returncode, "line": line,
+          "tum_rows": rows, "wall_s": wall,
+          "stderr": r.stderr[-800:] if r.returncode else "", "card": smi})
+    return ok
+
+
+def distributed_phase(smi, kf):
+    """Phase 14: the sharded BA in one process, run_ba --shards on the
+    keyframe store `kf`, and run_multihost over gloo on the card. Returns
+    ok."""
+    from rebvo_tpu_torch.apps import run_ba
+    from rebvo_tpu_torch.backend import ba
+    R_true, p_true, _, prob = ba.synth_ring_problem(
+        BA_F, BA_L, BA_OBS, BA_ZFM, device="cuda")
+    rng = np.random.RandomState(1)
+    p0 = torch.as_tensor(p_true + rng.randn(BA_F, 3).astype(np.float32) *
+                         0.03, device="cuda")
+    R0 = torch.as_tensor(R_true, device="cuda")
+    _, _, _, c1 = ba.ba_solve(R0, p0, prob, BA_ZFM, iters=BA_ITERS_FLOOR)
+    part = ba.partition_problem(prob, BA_SHARDS)
+    ba.ba_solve_sharded(R0, p0, part, BA_ZFM, n_shards=BA_SHARDS, iters=1)
+    torch.cuda.synchronize()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    _, _, _, cs_ = ba.ba_solve_sharded(R0, p0, part, BA_ZFM,
+                                       n_shards=BA_SHARDS,
+                                       iters=BA_ITERS_FLOOR)
+    b.record()
+    torch.cuda.synchronize()
+    c1, cs_ = c1.cpu().double().numpy(), cs_.cpu().double().numpy()
+    in_proc = {"shards": BA_SHARDS, "costs_one": c1.tolist(),
+               "costs_sharded": cs_.tolist(),
+               "sharded_solve_ms": a.elapsed_time(b),
+               "first_cost_rel_diff": float(abs(cs_[0] - c1[0]) / c1[0]),
+               "floor_diff_rel_first": float(abs(cs_[-1] - c1[-1]) /
+                                             c1[0])}
+    ok_in = (in_proc["first_cost_rel_diff"] <= 1e-5
+             and in_proc["floor_diff_rel_first"] <= BA_SHARD_RTOL)
+
+    # run_ba --shards 4 against --shards 1
+    cli = {}
+    for n in (1, BA_SHARDS):
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            rc = run_ba.main([kf, "--out", os.path.join(
+                "build", f"kf_shards{n}.npz"), "--rounds", "1", "--iters",
+                str(BA_STORE_ITERS), "--field-radius", "2", "--huber-k",
+                "1.0", "--shards", str(n)])
+        cli[n] = dict(json.loads(buf.getvalue().strip().splitlines()[-1]),
+                      rc=rc)
+    # both at the floor: 12 iterations leave a store's solve short of it
+    # (a 7-keyframe store read 565.0 and 539.5 from 10678.0 on an H100),
+    # so BA_STORE_ITERS
+    c0 = cli[1]["cost_initial"]
+    final_gap = abs(cli[BA_SHARDS]["cost_final"] - cli[1]["cost_final"]) / c0
+    ok_cli = (cli[1]["rc"] == 0 and cli[BA_SHARDS]["rc"] == 0
+              and cli[BA_SHARDS]["shards"] == BA_SHARDS
+              and abs(cli[BA_SHARDS]["cost_initial"] - c0) <= 1e-5 * c0
+              and final_gap <= BA_SHARD_RTOL)
+
+    # two ranks over gloo, sharing the card
+    t0 = time.perf_counter()
+    r = subprocess.run([sys.executable, "-m",
+                        "rebvo_tpu_torch.apps.run_multihost", "--nprocs",
+                        "2", "--check-ba", "--backend", "gloo",
+                        "--timeout", "400"],
+                       capture_output=True, text=True, timeout=600)
+    mh_wall = time.perf_counter() - t0
+    mh = json.loads(r.stdout.strip().splitlines()[-1]) \
+        if r.returncode == 0 else {}
+    pt = (mh.get("scaling") or [{}])[-1]
+    ok_mh = (r.returncode == 0 and pt.get("psum_ok") is True
+             and pt.get("pos_finite") is True
+             and pt.get("ba_parity_err") is not None
+             and pt["ba_parity_err"] < MULTIHOST_PARITY)
+    ok = ok_in and ok_cli and ok_mh
+    emit({"phase": "distributed", "ok": ok, "in_process": in_proc,
+          "in_process_ok": ok_in, "run_ba": cli, "run_ba_ok": ok_cli,
+          "run_ba_floor_gap_rel_first": final_gap,
+          "run_ba_bar_rel_first": BA_SHARD_RTOL, "multihost": mh,
+          "multihost_ok": ok_mh, "multihost_parity_bar": MULTIHOST_PARITY,
+          "multihost_wall_s": mh_wall,
+          "multihost_stderr": r.stderr[-800:] if r.returncode else "",
+          "timing": "CUDA events around one sharded solve; run_multihost's "
+                    "numbers are gloo through the host, not a rate",
+          "card": smi})
+    return ok
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1435,9 +1704,14 @@ def main():
     print(bench_line, flush=True)
     with open(os.path.join(OUT, "bench.json"), "w") as fh:
         fh.write(bench_line + "\n")
-    fps = json.loads(bench_line)["value"]
+    bench_res = json.loads(bench_line)
+    fps = bench_res["value"]
+    batched = [bench_res["detail"].get(k) for k in ("batched_fps",
+                                                      "batched_fps_nokf")]
     ok8 = (rc == 0 and bench_launches["build_scale_space_cuda"] > 0
-           and np.isfinite(fps) and fps > 0)
+           and np.isfinite(fps) and fps > 0
+           and all(isinstance(v, float) and v > 0 for v in batched)
+           and "not ported" not in bench_line)
     emit({"phase": "bench", "ok": ok8, "rc": rc, "launches": bench_launches})
     if not ok8:
         return 1
@@ -1463,6 +1737,16 @@ def main():
     if not ok12b:
         return 1
 
+    # ---- 13. the batched step, 13b. run_batch, 14. distributed ------------
+    batched_k1, k1_b16, ok13 = batched_phase(smi, p, kw)
+    if not ok13:
+        return 1
+    if not run_batch_phase(smi):
+        return 1
+    if not distributed_phase(smi, os.path.join(
+            "build", "smoke_parity", "loop", "repo_out", "kf_list.npz")):
+        return 1
+
     # ---- 9. kernel list -----------------------------------------------
     emit({"kernels": [{
         "name": "detect_candidates", "route": "cuda",
@@ -1475,7 +1759,7 @@ def main():
         "call_ms": call_ms,
         "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
         "x_bound": kernel_ms / bound_ms, "resources": k1_res,
-        "library_ms": None,
+        "library_ms": None, "batch16": k1_b16,
         "launches_by_path": {
             "main_path": launches,
             "scan_n8": scan["n8"]["launches"]["detect_candidates_cuda"],
@@ -1487,7 +1771,7 @@ def main():
             **{k: v["detect_candidates_cuda"]
                for k, v in st_launches.items()},
             "vosystem": sys_launches["detect_candidates_cuda"],
-            "parity_row": parity_k1}}, {
+            "parity_row": parity_k1, "batched": batched_k1}}, {
         "name": "build_scale_space", "route": "cuda",
         "source": "rebvo_tpu_torch/csrc/build_scale_space.cu",
         "replaces": "rebvo_tpu/kernels/pallas_scale_space.py:276",

@@ -4,12 +4,17 @@ port of rebvo_tpu/apps/run_ba.py).
 The keyframe list (`run_vo --kf-every N`, or `VOSystem.TakeSnapshot`) is
 re-matched into an edge-landmark BA problem and solved with the
 Schur-complement Gauss-Newton backend on the CUDA device (`--cpu` for the
-CPU). The last line of standard output is one JSON object: keyframes,
-landmarks, observations, cost_initial, cost_final, shards, out.
+CPU). `--shards N` splits the landmarks into N blocks
+(`partition_problem`) and solves with `ba_solve_sharded`, the blocks'
+shares of the reduced system summed in one process on the one device
+(the JAX package spreads them over N devices of its mesh). The last line
+of standard output is one JSON object: keyframes, landmarks,
+observations, cost_initial, cost_final, shards, out.
 
 Examples:
     python -m rebvo_tpu_torch.apps.run_ba kf_list.npz --out kf_list_opt.npz
     python -m rebvo_tpu_torch.apps.run_ba kf_list.npz --cpu --rounds 1
+    python -m rebvo_tpu_torch.apps.run_ba kf_list.npz --shards 4
 """
 
 from __future__ import annotations
@@ -17,11 +22,6 @@ from __future__ import annotations
 import argparse
 import json
 import os
-
-_NOT_PORTED = {
-    "shards": "the landmark-sharded solve over several devices: ROADMAP M17",
-}
-
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__)
@@ -50,20 +50,19 @@ def main(argv=None):
     ap.add_argument("--revisit-min-gap", type=int, default=8)
     ap.add_argument("--landmark-stride", type=int, default=1,
                     help="thin the landmark set to every Nth keyline")
-    ap.add_argument("--shards", type=int, default=0)
+    ap.add_argument("--shards", type=int, default=0,
+                    help="landmark blocks of the sharded solve (0 or 1: "
+                         "ba_solve)")
     ap.add_argument("--cpu", action="store_true",
                     help="run on the CPU")
     args = ap.parse_args(argv)
 
-    for flag, item in _NOT_PORTED.items():
-        if getattr(args, flag) > 1:
-            ap.error(f"--{flag} is not ported to rebvo_tpu_torch yet: "
-                     f"{item}")
-
     import numpy as np
     import torch
 
-    from rebvo_tpu_torch.backend.ba import ba_solve, problem_from_keyframes
+    from rebvo_tpu_torch.backend.ba import (ba_solve, ba_solve_sharded,
+                                            partition_problem,
+                                            problem_from_keyframes)
     from rebvo_tpu_torch.backend.keyframe import (load_keyframes,
                                                   save_keyframes)
     from rebvo_tpu_torch.config import REBVOParameters, load_config
@@ -93,8 +92,17 @@ def main(argv=None):
             mutual_px=args.mutual_px, revisit_dist=args.revisit_dist,
             revisit_min_gap=args.revisit_min_gap,
             landmark_stride=args.landmark_stride)
-        R2, p2, _, costs = ba_solve(R2, p2, prob, cam.zfm, iters=args.iters,
-                                    huber_k=args.huber_k)
+        if args.shards > 1:
+            # rho comes back in the partitioned layout; only the poses
+            # go into the store
+            R2, p2, _, costs = ba_solve_sharded(
+                R2, p2, partition_problem(prob, args.shards), cam.zfm,
+                n_shards=args.shards, iters=args.iters,
+                huber_k=args.huber_k)
+        else:
+            R2, p2, _, costs = ba_solve(R2, p2, prob, cam.zfm,
+                                        iters=args.iters,
+                                        huber_k=args.huber_k)
         all_costs.append(costs.cpu().numpy())
     costs = np.concatenate(all_costs)
 
@@ -116,7 +124,7 @@ def main(argv=None):
         "observations": int(prob.ovalid.sum()),
         "cost_initial": float(costs[0]),
         "cost_final": float(costs[-1]),
-        "shards": 1,
+        "shards": max(args.shards, 1),
         "out": out,
     }))
     return 0

@@ -1,5 +1,5 @@
 """Edge-landmark bundle adjustment with Schur-complement reduction
-(PyTorch counterpart of rebvo_tpu/backend/ba.py, single process).
+(PyTorch counterpart of rebvo_tpu/backend/ba.py).
 
 The reference has no BA (its pose graph is a measurement log). Here:
 
@@ -10,7 +10,14 @@ The reference has no BA (its pose graph is a measurement log). Here:
     system is H_pp - S^T diag(1/h_l) S, with S the per-landmark
     accumulation of pose-Jacobian x depth-Jacobian products, one
     [6F, L] x [L, 6F] product;
-  * the reduced solve (6F x 6F, F keyframes) is dense.
+  * the reduced solve (6F x 6F, F keyframes) is dense;
+  * `ba_solve_sharded` splits the landmarks (and their observations) into
+    blocks (`partition_problem`'s layout); each block reduces its share
+    of the reduced system, the shares are summed (in block order in one
+    process, then by `torch.distributed.all_reduce` over the process
+    group the caller passes, where the JAX package `psum`s over its
+    mesh) and the solve runs replicated. `ba_solve` is the same loop
+    over one block.
 
 Each observation's 1x13 Jacobian (anchor pose, observing pose, depth) is
 written out by hand, batched over observations; the JAX package takes it
@@ -23,7 +30,7 @@ accept/reject test per step, with no host read inside.
 
 from __future__ import annotations
 
-from typing import NamedTuple, Tuple
+from typing import List, NamedTuple, Tuple
 
 import numpy as np
 import torch
@@ -185,15 +192,19 @@ def _gauge_fix(H_red: Tensor, b_red: Tensor, F: int, damping):
     return H_red, b_red
 
 
-def _schur_solve(H, b, h_l, g_l, S, F: int, damping):
+def _schur_block(H, b, h_l, g_l, S, damping):
+    """One landmark block's share of the reduced camera system,
+    H - S^T diag(1/h) S and b - S^T (g/h), and 1/h (0 where h vanishes:
+    a landmark no observation constrains)."""
     inv_h = torch.where(h_l > 1e-12, 1.0 / (h_l + damping),
                         torch.zeros_like(h_l))
-    H_red = H - (S * inv_h[:, None]).T @ S
-    b_red = b - S.T @ (inv_h * g_l)
+    return H - (S * inv_h[:, None]).T @ S, b - S.T @ (inv_h * g_l), inv_h
+
+
+def _solve_reduced(H_red, b_red, F: int, damping):
+    """The pose step of the damped, gauge-fixed reduced system."""
     H_red, b_red = _gauge_fix(H_red, b_red, F, damping)
-    dx = torch.linalg.solve_ex(H_red, -b_red)[0]
-    drho = -inv_h * (g_l + S @ dx)
-    return dx, drho
+    return torch.linalg.solve_ex(H_red, -b_red)[0]
 
 
 def _apply_update(R, p, rho, dx, drho, max_drho=0.5):
@@ -205,6 +216,57 @@ def _apply_update(R, p, rho, dx, drho, max_drho=0.5):
     return R2, p2, rho2
 
 
+def _all_reduce(x: Tensor, group) -> Tensor:
+    """Sum over `group`, a torch.distributed process group; None: this
+    process alone."""
+    if group is not None:
+        import torch.distributed as dist
+        dist.all_reduce(x, group=group)
+    return x
+
+
+def _solve_blocks(R: Tensor, p: Tensor, blocks: List[BAProblem], zfm,
+                  iters: int, huber_k: float, damping: float, group
+                  ) -> Tuple[Tensor, Tensor, List[Tensor], Tensor]:
+    """The Gauss-Newton loop over landmark blocks: each block reduces its
+    landmarks' share of the reduced camera system and its cost, the
+    shares are summed in block order and then over `group`, and every
+    rank solves the same 6F x 6F system. Returns (R', p', each block's
+    rho', costs [iters])."""
+    F = R.shape[0]
+    rhos = [b.rho for b in blocks]
+    lam = torch.full((), damping, dtype=p.dtype, device=p.device)
+    costs = []
+    for _ in range(iters):
+        red, parts = 0, []
+        for b, rho in zip(blocks, rhos):
+            pb = b._replace(rho=rho)
+            H, bv, h_l, g_l, S, cost = _reduce_terms(
+                *_build_terms(R, p, pb, zfm, huber_k), pb, F)
+            H_s, b_s, inv_h = _schur_block(H, bv, h_l, g_l, S, lam)
+            red = red + torch.cat([H_s.reshape(-1), b_s, cost.reshape(1)])
+            parts.append((pb, inv_h, g_l, S))
+        red = _all_reduce(red, group)
+        cost = red[-1]
+        dx = _solve_reduced(red[:36 * F * F].reshape(6 * F, 6 * F),
+                            red[36 * F * F:-1], F, lam)
+        new, cost_new = [], 0
+        for pb, inv_h, g_l, S in parts:
+            R2, p2, rho2 = _apply_update(R, p, pb.rho, dx,
+                                         -inv_h * (g_l + S @ dx))
+            new.append(rho2)
+            cost_new = cost_new + _eval_cost(
+                R2, p2, pb._replace(rho=rho2), zfm, huber_k).reshape(1)
+        cost_new = _all_reduce(cost_new, group)[0]
+        acc = (cost_new < cost) & torch.isfinite(cost_new)
+        R = torch.where(acc, R2, R)
+        p = torch.where(acc, p2, p)
+        rhos = [torch.where(acc, r2, r) for r2, r in zip(new, rhos)]
+        lam = torch.clamp(torch.where(acc, lam * 0.5, lam * 8.0), 1e-6, 1e6)
+        costs.append(cost)
+    return R, p, rhos, torch.stack(costs)
+
+
 def ba_solve(R: Tensor, p: Tensor, prob: BAProblem, zfm, iters: int = 8,
              huber_k: float = 3.0, damping: float = 1e-3
              ) -> Tuple[Tensor, Tensor, Tensor, Tensor]:
@@ -212,24 +274,42 @@ def ba_solve(R: Tensor, p: Tensor, prob: BAProblem, zfm, iters: int = 8,
     costs [iters]), costs[i] the cost before step i; a step that does not
     lower the cost is rejected and the damping raised 8x (halved on
     accept, within [1e-6, 1e6])."""
-    F = R.shape[0]
-    rho = prob.rho
-    lam = torch.full((), damping, dtype=p.dtype, device=p.device)
-    costs = []
-    for _ in range(iters):
-        pb = prob._replace(rho=rho)
-        r, Ja, Jf, Jr, wgt = _build_terms(R, p, pb, zfm, huber_k)
-        H, b, h_l, g_l, S, cost = _reduce_terms(r, Ja, Jf, Jr, wgt, pb, F)
-        dx, drho = _schur_solve(H, b, h_l, g_l, S, F, lam)
-        R2, p2, rho2 = _apply_update(R, p, rho, dx, drho)
-        cost_new = _eval_cost(R2, p2, pb._replace(rho=rho2), zfm, huber_k)
-        acc = (cost_new < cost) & torch.isfinite(cost_new)
-        R = torch.where(acc, R2, R)
-        p = torch.where(acc, p2, p)
-        rho = torch.where(acc, rho2, rho)
-        lam = torch.clamp(torch.where(acc, lam * 0.5, lam * 8.0), 1e-6, 1e6)
-        costs.append(cost)
-    return R, p, rho, torch.stack(costs)
+    R, p, (rho,), costs = _solve_blocks(R, p, [prob], zfm, iters, huber_k,
+                                        damping, None)
+    return R, p, rho, costs
+
+
+def _blocks(prob: BAProblem, n: int) -> List[BAProblem]:
+    """The n equal blocks of a partitioned problem, landmarks and
+    observations alike."""
+    L, O = prob.rho.shape[0], prob.obs_lm.shape[0]
+    if L % n or O % n:
+        raise ValueError(f"ba_solve_sharded: {L} landmarks and {O} "
+                         f"observations do not split into {n} blocks "
+                         f"(use partition_problem)")
+    nl, no = L // n, O // n
+    return [BAProblem(*[x[k * nl:(k + 1) * nl] if i < 5 else
+                        x[k * no:(k + 1) * no]
+                        for i, x in enumerate(prob)]) for k in range(n)]
+
+
+def ba_solve_sharded(R: Tensor, p: Tensor, prob: BAProblem, zfm,
+                     n_shards: int = 1, iters: int = 8,
+                     huber_k: float = 3.0, damping: float = 1e-3,
+                     group=None) -> Tuple[Tensor, Tensor, Tensor, Tensor]:
+    """Landmark-sharded BA, `ba_solve`'s loop with the reduced camera
+    system summed over blocks. `prob` is in `partition_problem`'s layout
+    (each observation in its landmark's block, `obs_lm` local to the
+    block) and is split here into `n_shards` blocks, whose shares are
+    summed in block order. With `group` (a torch.distributed process
+    group, e.g. `torch.distributed.group.WORLD`), `prob` is this rank's
+    part and the sums are then all-reduced over the group, so every rank
+    solves the same 6F x 6F system: n blocks in one process equal a
+    world of n ranks holding one each. Returns (R', p', rho' in `prob`'s
+    layout, costs [iters])."""
+    R, p, rhos, costs = _solve_blocks(R, p, _blocks(prob, n_shards), zfm,
+                                      iters, huber_k, damping, group)
+    return R, p, torch.cat(rhos), costs
 
 
 def partition_problem(prob: BAProblem, n_shards: int) -> BAProblem:

@@ -14,6 +14,7 @@ from typing import NamedTuple, Tuple
 import torch
 
 from rebvo_tpu_torch.core.geometry import rotate_gradients, so3_exp
+from rebvo_tpu_torch.core.numerics import matmul, sum64
 from rebvo_tpu_torch.frontend.state import RHO_MAX, RHO_MIN, KeylineMap
 from rebvo_tpu_torch.kernels.depth_filter import depth_ekf
 from rebvo_tpu_torch.kernels.pose_solver import FieldView, minimizer_rv
@@ -25,8 +26,8 @@ def relative_pose(Pose_a: Tensor, Pos_a: Tensor, Pose_b: Tensor,
                   Pos_b: Tensor):
     """(R, t) mapping frame-a camera points into frame b (X_b = R X_a + t)
     from the global camera-to-world poses."""
-    R = Pose_b.T @ Pose_a
-    t = Pose_b.T @ (Pos_a - Pos_b)
+    R = matmul(Pose_b.T, Pose_a)
+    t = matmul(Pose_b.T, Pos_a - Pos_b)
     return R, t
 
 
@@ -89,7 +90,7 @@ def align_to_keyframe(kf_klm: KeylineMap, frame_fv: FieldView,
         k_huber=k_huber, iter_max=iter_max, init_iter=init_iter,
         init_type=2)
     dR = so3_exp(res.W0)
-    return KFAlignResult(R=dR @ R_prior, t=dR @ t_prior + res.Vel,
+    return KFAlignResult(R=matmul(dR, R_prior), t=matmul(dR, t_prior) + res.Vel,
                          Vel=res.Vel, W0=res.W0, m_id_f=res.m_id_f,
                          score=res.score, RVel=res.RVel, RW0=res.RW0)
 
@@ -109,7 +110,7 @@ def refine_keyframe_depths(kf_klm: KeylineMap, R: Tensor, t: Tensor,
     fwd = transform_map(kf_klm, R, t, zfm)
     upd = depth_ekf(fwd, vel_equiv, zfm, reshape_q_abs=reshape_q_abs,
                     loc_uncertainty=loc_uncertainty)
-    back = transform_map(upd, R.T, -(R.T @ t), zfm)
+    back = transform_map(upd, R.T, -matmul(R.T, t), zfm)
     return kf_klm._replace(rho=back.rho, s_rho=back.s_rho,
                            rho0=back.rho0, s_rho0=back.s_rho0)
 
@@ -173,8 +174,8 @@ def optimize_scale(klm: KeylineMap, kf_klm: KeylineMap, m_id: Tensor,
     else:
         raise ValueError(mode)
     zero = torch.zeros_like(num)
-    num_s = torch.sum(torch.where(ok, num, zero))
-    den_s = torch.sum(torch.where(ok, den, zero))
+    num_s = sum64(torch.where(ok, num, zero))
+    den_s = sum64(torch.where(ok, den, zero))
     good = (num_s > 0) & (den_s > 0)
     fb = torch.as_tensor(fallback, dtype=q1z.dtype, device=q1z.device)
     Kr = torch.where(good, num_s / torch.where(good, den_s,

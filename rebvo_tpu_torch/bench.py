@@ -12,7 +12,8 @@ Baseline: the reference runs as a 20 fps real-time system on MAV-class
 CPUs (BASELINE.md). The default configuration (EuRoC camera, 752x480,
 KeylineMax=16384) runs on rendered billboard frames (io/render), made
 from fixed scene seeds: 16 frames of a moving camera (seed 101) for the
-serial phases, 3 frames of lane 0 for the stage breakdown.
+serial phases, 3 frames of each of 16 lanes (seeds 0-15) for the
+batched phase, lane 0's for the stage breakdown.
 
 Phases, each a function of the parameters and the device (the tests run
 them small on the CPU; the command needs a card and fails without one):
@@ -20,11 +21,14 @@ them small on the CPU; the command needs a card and fails without one):
   serial  — step_donated in chunks of frames, the dispatch cost of one
             op on the state, and the pure step;
   scan    — step_scan with N=8 (offline replay) and N=2 (live);
+  batched — 16 distinct sequences as one vmapped step
+            (parallel/mesh.shard_sequences: one CUDA graph on the card):
+            bootstrap, then 40 batched steps alternating two frames; the
+            same with TrackKeyFrames=0, and the keyframe tracking's share;
   stages  — profiling.stage_breakdown, roofline, matching_gather_floor and
             step_cost_analysis on the state after bootstrap + 2 steps.
-Every chunk time is reported. The JAX bench's batched phase (16
-sequences at once) needs the batch dimension of ROADMAP M16 and is
-reported as not ported.
+Every chunk time is reported. `value` is the larger of the serial and
+the batched frames/s, as in the JAX bench.
 """
 
 from __future__ import annotations
@@ -41,6 +45,7 @@ from rebvo_tpu_torch import profiling
 
 N_SERIAL_FRAMES = 16          # distinct rendered frames cycled by the loops
 SERIAL_SEED = 101
+BATCH = 16                    # sequences of the batched phase
 
 
 def _render_lane(params, n, seed):
@@ -174,6 +179,43 @@ def phase_scan(params, device, serial, n_chunks8=8, n_chunks2=24):
     return res
 
 
+def _measure_batched(params, device, lanes, n_iter):
+    """Frames/s of `n_iter` batched steps over lanes [B, 3, H, W]: the
+    bootstrap on frame 0 and one step on frame 1 (the captures on the
+    card), then steps alternating frames 2 and 1, host clock ending in a
+    synchronize."""
+    from rebvo_tpu_torch.frontend.step import VOFrontend
+    from rebvo_tpu_torch.parallel.mesh import shard_sequences, stack_lanes
+    fe = VOFrontend(params, device=device)
+    mesh = [torch.device(device)]
+    B = lanes.shape[0]
+    frames = torch.as_tensor(lanes, device=device)
+    bootv = shard_sequences(fe.bootstrap, mesh)
+    stepv = shard_sequences(fe.step_donated, mesh)
+    ts = [torch.full((B,), 0.05 * i, device=device)
+          for i in range(n_iter + 2)]
+    states = bootv([stack_lanes(fe.init(), B)], [frames[:, 0]], [ts[0]])
+    f1, f2 = [frames[:, 1]], [frames[:, 2]]
+    states, _ = stepv(states, f1, [ts[1]])
+    profiling.sync(device)
+    t0 = time.perf_counter()
+    for i in range(n_iter):
+        states, _ = stepv(states, f1 if i % 2 else f2, [ts[i + 2]])
+    profiling.sync(device)
+    return B * n_iter / (time.perf_counter() - t0)
+
+
+def phase_batched(params, device, lanes, n_iter=40):
+    """The batched rate with keyframe tracking (the default) and without,
+    and the tracking's share of the batched step."""
+    fps = _measure_batched(params, device, lanes, n_iter)
+    fps_nokf = _measure_batched(params.replace(TrackKeyFrames=0), device,
+                                lanes, n_iter)
+    return dict(batched_fps=fps, batch=lanes.shape[0],
+                batched_fps_nokf=fps_nokf,
+                kf_tracking_overhead_pct=100.0 * (fps_nokf - fps) / fps)
+
+
 def phase_stages(params, device, lane, n=10):
     """The stage breakdown, roofline, gather floor and matrix-product
     FLOPs of the step on the state after bootstrap + 2 steps."""
@@ -205,19 +247,22 @@ def main():
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60, check=True).stdout.strip().splitlines()[0]
     serial = _render_lane(params, N_SERIAL_FRAMES, SERIAL_SEED)
-    lane0 = rendered_lanes(params, 3, 1)[0]
+    lanes = rendered_lanes(params, 3, BATCH)
 
     torch.cuda.reset_peak_memory_stats()
     warm = phase_warm(params, device, serial)
     serial_r = phase_serial(params, device, serial)
     scan = phase_scan(params, device, serial)
-    stages = phase_stages(params, device, lane0)
+    batched = phase_batched(params, device, lanes)
+    stages = phase_stages(params, device, lanes[0])
 
-    fps = max(serial_r["serial_fps"], scan["serial_fps_scan8"])
+    serial_fps = max(serial_r["serial_fps"], scan["serial_fps_scan8"])
+    fps = max(serial_fps, batched["batched_fps"])
     detail = {
-        "serial_fps": fps,
-        "batched_fps": None,
-        "batched": "not ported: ROADMAP M16",
+        "serial_fps": serial_fps,
+        **batched,
+        "batched_frames": f"{BATCH} lanes of 3 rendered frames (seeds "
+                          f"0-{BATCH - 1}), one vmapped step over all",
         "resolution": f"{params.ImageWidth}x{params.ImageHeight}",
         "keyline_budget": params.KeylineMax,
         "frames": "rendered billboards (io/render)",

@@ -13,6 +13,8 @@ from typing import NamedTuple
 
 import torch
 
+from rebvo_tpu_torch.core.numerics import matmul
+
 Tensor = torch.Tensor
 
 
@@ -36,7 +38,12 @@ def skew(w: Tensor) -> Tensor:
 
 
 def so3_exp(w: Tensor) -> Tensor:
-    """Rodrigues' formula, Taylor-safe near zero (replaces TooN::SO3)."""
+    """Rodrigues' formula, Taylor-safe near zero (replaces TooN::SO3).
+    Evaluated in float64 and rounded once to w's dtype: sin and cos
+    differ by an ulp between the card and the CPU in float32
+    (core/numerics' module note)."""
+    dt = w.dtype
+    w = w.double()
     theta2 = torch.sum(w * w, dim=-1)
     small = theta2 < 1e-12
     t2s = torch.where(small, torch.ones_like(theta2), theta2)
@@ -45,7 +52,8 @@ def so3_exp(w: Tensor) -> Tensor:
     b = torch.where(small, 0.5 - theta2 / 24.0, (1.0 - torch.cos(theta)) / t2s)
     K = skew(w)
     eye = torch.eye(3, dtype=w.dtype, device=w.device)
-    return eye + a[..., None, None] * K + b[..., None, None] * (K @ K)
+    return (eye + a[..., None, None] * K +
+            b[..., None, None] * matmul(K, K)).to(dt)
 
 
 def so3_log(R: Tensor) -> Tensor:

@@ -10,6 +10,18 @@
   turns `x / c` with a Python scalar `c` into `x * (1/c)`, which rounds
   differently from the reference's division; dividing by a 0-d device
   tensor keeps it a true division on every device.
+* `matmul` and `sum64` — products and long sums accumulated in float64
+  and rounded once to float32. A float32 sum in another order (the
+  card's against the CPU's, or a vmapped batch's against one lane's)
+  rounds differently, and the step's discrete tests (the LM's accept
+  test and rung choice, a keyline's search window) amplify that into
+  another trajectory; rounded from float64, both get the same float32
+  value but near a tie. On the CPU, `@` of one lane is an mm and of a
+  vmapped batch a bmm, whose BLAS paths differ, so there `matmul` is a
+  broadcast multiply summed over the shared axis, which reduces in the
+  same order with or without leading batch axes: a vmapped lane equals
+  the lane alone bit for bit (`torch.linalg.vecdot`, which is that
+  multiply and sum). CUDA tensors take `@` (in float64).
 """
 
 from __future__ import annotations
@@ -44,3 +56,27 @@ def round_int(x: torch.Tensor) -> torch.Tensor:
 def div_const(x: torch.Tensor, c: float) -> torch.Tensor:
     """x / c as an IEEE division on every device (see module note)."""
     return x / torch.full((), c, dtype=x.dtype, device=x.device)
+
+
+def matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """`a @ b` (matrices [..., n, k] @ [..., k, m], or a vector on
+    either side) accumulated in float64, in `a`'s dtype; batch-invariant
+    on the CPU (see module note)."""
+    dt = a.dtype
+    a, b = a.double(), b.double()
+    if a.device.type != "cpu":
+        return (a @ b).to(dt)
+    if b.ndim == 1:
+        return torch.linalg.vecdot(a, b).to(dt)
+    if a.ndim == 1:
+        return torch.linalg.vecdot(a[:, None], b, dim=-2).to(dt)
+    return torch.linalg.vecdot(a[..., :, :, None], b[..., None, :, :],
+                               dim=-2).to(dt)
+
+
+def sum64(x: torch.Tensor, dim=None) -> torch.Tensor:
+    """Sum (over `dim`, default all) accumulated in float64, in x's
+    dtype (see module note)."""
+    if dim is None:
+        return torch.sum(x, dtype=torch.float64).to(x.dtype)
+    return torch.sum(x, dim=dim, dtype=torch.float64).to(x.dtype)

@@ -17,6 +17,7 @@ from typing import NamedTuple, Tuple
 import torch
 
 from rebvo_tpu_torch.core.geometry import skew, so3_exp
+from rebvo_tpu_torch.core.numerics import matmul, sum64
 from rebvo_tpu_torch.frontend.state import KeylineMap, select_map
 
 Tensor = torch.Tensor
@@ -65,9 +66,9 @@ def invert_matches(m_id: Tensor, valid: Tensor, K_old: int) -> Tensor:
     has = (m_id >= 0) & valid
     tgt = torch.where(has, m_id, torch.full_like(m_id, K_old)).to(torch.int64)
     inv = torch.full((K_old + 1,), -1, dtype=torch.int32, device=m_id.device)
-    inv.scatter_reduce_(0, tgt, torch.arange(K_new, dtype=torch.int32,
-                                             device=m_id.device),
-                        reduce="amax", include_self=True)
+    inv = inv.scatter_reduce(0, tgt, torch.arange(K_new, dtype=torch.int32,
+                                                  device=m_id.device),
+                             reduce="amax", include_self=True)
     return inv[:K_old]
 
 
@@ -82,7 +83,7 @@ def build_forward_match(kf_m_id_f: Tensor, kf_valid: Tensor,
 
 def essential_matrix(R: Tensor, t: Tensor) -> Tensor:
     """E = R [t]x (kfvo.cpp:894-896)."""
-    return R @ skew(t)
+    return matmul(R, skew(t))
 
 
 def _epipolar_dist(qx, qy, E, zfm, tgt_px, tgt_py):
@@ -142,7 +143,7 @@ def augment_matches(m_id: Tensor, src_p_id: Tensor, src_n_id: Tensor,
 
 def kf_relative_pose(kf: KFCarry, Pose: Tensor, Pos: Tensor):
     """(R, t) mapping keyframe camera points into the current frame."""
-    return Pose.T @ kf.Pose, Pose.T @ (kf.Pos - Pos)
+    return matmul(Pose.T, kf.Pose), matmul(Pose.T, kf.Pos - Pos)
 
 
 def correct_and_augment(kf: KFCarry, klm: KeylineMap, Pose: Tensor,
@@ -154,13 +155,13 @@ def correct_and_augment(kf: KFCarry, klm: KeylineMap, Pose: Tensor,
     augment + prune in both directions, skipped below a degenerate
     baseline. Returns (kf m_id_f, frame m_id_kf, fow_m, back_m)."""
     nv = torch.clamp(torch.sum(klm.valid, dtype=torch.int32), min=1)
-    rho_mean = torch.sum(torch.where(klm.valid, klm.rho,
-                                     torch.zeros_like(klm.rho))) / nv
+    rho_mean = sum64(torch.where(klm.valid, klm.rho,
+                                 torch.zeros_like(klm.rho))) / nv
     neg = torch.full_like(klm.m_id_kf, -1)
 
     # backward direction: frame keylines -> KF map
-    R_b = kf.Pose.T @ Pose
-    t_b = Pose.T @ (kf.Pos - Pos)
+    R_b = matmul(kf.Pose.T, Pose)
+    t_b = matmul(Pose.T, kf.Pos - Pos)
     E_b = essential_matrix(R_b, t_b)
     strong_b = zfm * torch.linalg.norm(t_b) * rho_mean > min_baseline_px
     m_raw = torch.where(klm.valid, klm.m_id_kf, neg)
@@ -175,8 +176,8 @@ def correct_and_augment(kf: KFCarry, klm: KeylineMap, Pose: Tensor,
 
     # forward direction: KF keylines -> frame map, rebuilt each frame
     # through the inverted new->old back matches (kfvo.cpp:739-771)
-    R_f = Pose.T @ kf.Pose
-    t_f = kf.Pose.T @ (Pos - kf.Pos)
+    R_f = matmul(Pose.T, kf.Pose)
+    t_f = matmul(kf.Pose.T, Pos - kf.Pos)
     E_f = essential_matrix(R_f, t_f)
     strong_f = zfm * torch.linalg.norm(t_f) * rho_mean > min_baseline_px
     inv_old_to_new = invert_matches(klm.m_id, klm.valid, klm.K)
@@ -247,19 +248,19 @@ def track_keyframe(kf: KFCarry, klm: KeylineMap, fv, Pose: Tensor,
         torch.full((3,), p.KFDriftRotStd ** 2, dtype=dt, device=dev)]) * age_f
     S = torch.block_diag(ares.RVel, ares.RW0) + torch.diag(q)
     dX = torch.cat([dV, dW])
-    chi2 = dX @ torch.linalg.solve_ex(S, dX)[0]
+    chi2 = matmul(dX, torch.linalg.solve_ex(S, dX)[0])
     CHI2_6_999 = 22.458                       # chi^2 6-dof 0.999 quantile
     conditioned = (torch.trace(ares.RW0) < p.KFAlignRotUncertMax ** 2) & \
         (torch.trace(ares.RVel) < torch.square(p.KFAlignTransUncertMax * cf))
     align_ok = run & finite & conditioned & (chi2 < CHI2_6_999) & \
         (back_m >= p.GlobalMatchThreshold)
-    gain = torch.diag(q) @ torch.linalg.inv_ex(S)[0]
-    dX_app = gain @ dX
+    gain = matmul(torch.diag(q), torch.linalg.inv_ex(S)[0])
+    dX_app = matmul(gain, dX)
     dR_b = so3_exp(dX_app[3:])
-    R_b = dR_b @ R_prior
-    t_b = dR_b @ (t_prior * cf) + dX_app[:3]
-    Pose_kf = kf.Pose @ R_b.T
-    Pos_kf = kf.Pos - Pose_kf @ (t_b / cf)
+    R_b = matmul(dR_b, R_prior)
+    t_b = matmul(dR_b, t_prior * cf) + dX_app[:3]
+    Pose_kf = matmul(kf.Pose, R_b.T)
+    Pos_kf = kf.Pos - matmul(Pose_kf, t_b / cf)
     Pose = torch.where(align_ok, Pose_kf, Pose)
     Pos = torch.where(align_ok, Pos_kf, Pos)
     return _finish(kf, klm, m_f, m_kf, Pose, Pos, fow_m, back_m, kl_num,

@@ -20,6 +20,13 @@ nav-log ring to append a row. `step_donated` and `step_scan` may reuse
 the input state's buffers (the ring is appended in place), like the JAX
 package's donated entry points: the caller must not touch the old state.
 
+The same body runs B sequences at once under `torch.func.vmap`
+(parallel/mesh.shard_sequences), as the JAX package's step runs under
+`jax.vmap`: no op writes a batched value into a buffer made inside the
+step (the scatters are out of place), and on the CPU every product goes
+through core/numerics.matmul, so a vmapped lane equals the lane alone
+bit for bit there.
+
 Each stage of `step` runs under a `record_function` span (`vo.front`,
 `vo.detect` inside it, `vo.pose`, `vo.match_depth`, `vo.keyframe`), so
 a `torch.profiler` trace splits the step's host and device time by
@@ -57,6 +64,7 @@ from rebvo_tpu_torch.config import REBVOParameters
 from rebvo_tpu_torch.core.geometry import (CameraModel, rotate_gradients,
                                            rotate_hom_points, so3_exp,
                                            so3_log)
+from rebvo_tpu_torch.core.numerics import matmul
 from rebvo_tpu_torch.core.stats import masked_median
 from rebvo_tpu_torch.frontend.imu import (ImuWindow, ScaleWindows,
                                           bias_correct, est_acel_lsq4,
@@ -165,31 +173,35 @@ class FrameOutput(NamedTuple):
     imu_dbg: Tensor        # [len(IMU_DBG_ROWS), 3] (zeros in mono)
 
 
-def _leaves(tree) -> list:
-    """The tensors of a nest of NamedTuples, in field order."""
-    if isinstance(tree, Tensor):
-        return [tree]
-    return [leaf for sub in tree for leaf in _leaves(sub)]
+def tree_leaves(tree) -> list:
+    """The leaves of a nest of tuples, NamedTuples and lists, in order
+    (anything else is a leaf)."""
+    if isinstance(tree, (tuple, list)):
+        return [leaf for sub in tree for leaf in tree_leaves(sub)]
+    return [tree]
 
 
-def _tree_map(fn, *trees):
-    """fn over the leaves of NamedTuple nests of one structure."""
-    if isinstance(trees[0], Tensor):
+def tree_map(fn, *trees):
+    """fn over the leaves of nests of tuples, NamedTuples and lists of
+    one structure."""
+    t = trees[0]
+    if not isinstance(t, (tuple, list)):
         return fn(*trees)
-    return type(trees[0])(*[_tree_map(fn, *subs) for subs in zip(*trees)])
+    subs = [tree_map(fn, *xs) for xs in zip(*trees)]
+    return type(t)(*subs) if hasattr(t, "_fields") else type(t)(subs)
 
 
 def _stack_outputs(outs) -> "FrameOutput":
     """Per-frame outputs stacked on a leading axis, as lax.scan stacks
     them."""
-    return _tree_map(lambda *xs: torch.stack(xs), *outs)
+    return tree_map(lambda *xs: torch.stack(xs), *outs)
 
 
 def _copy_state_(dst, src) -> None:
     """Copy every leaf of `src` into the same leaf of `dst`. A source leaf
     that shares storage with another destination leaf is cloned first,
     so no copy reads a buffer that an earlier copy has overwritten."""
-    pairs = [(d, x) for d, x in zip(_leaves(dst), _leaves(src))
+    pairs = [(d, x) for d, x in zip(tree_leaves(dst), tree_leaves(src))
              if d is not x]
     dst_mem = {d.untyped_storage().data_ptr() for d, _ in pairs}
     pairs = [(d, x.clone() if x.untyped_storage().data_ptr() in dst_mem
@@ -309,6 +321,42 @@ def init_state(params: REBVOParameters, dtype=torch.float32,
         aV=torch.zeros((3,), **kw),
         aAge=i32(0),
     )
+
+
+def capture_graph(fn, args, pool, warmup):
+    """`fn(*args)` captured as one CUDA graph in memory pool `pool`,
+    PyTorch's recipe: `warmup()` first runs on a side stream (it creates
+    the cuBLAS and cuSOLVER handles and loads the kernels; it must leave
+    `args` as they were), then the capture. Returns (graph, outputs,
+    launches): the outputs are the graph's own tensors, rewritten by each
+    replay; launches recorded by the capture are taken off the kernel
+    wrappers' counts and listed as (wrapper, launches per replay) for
+    `replay_graph` to add back. Used by `VOFrontend.step_scan` and
+    `parallel.mesh.shard_sequences`."""
+    from rebvo_tpu_torch.kernels.cuda_scale_space import WRAPPERS
+    dev = torch.cuda.current_device()
+    main = torch.cuda.current_stream(dev)
+    side = torch.cuda.Stream(device=dev)
+    side.wait_stream(main)
+    with torch.cuda.stream(side):
+        warmup()
+    main.wait_stream(side)
+    before = [w.launches for w in WRAPPERS]
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, pool=pool):
+        outs = fn(*args)
+    launches = []
+    for w, n0 in zip(WRAPPERS, before):
+        launches.append((w, w.launches - n0))
+        w.launches = n0
+    return graph, outs, tuple(launches)
+
+
+def replay_graph(graph, launches) -> None:
+    """Replay a graph of `capture_graph`, counting its kernel launches."""
+    graph.replay()
+    for w, n in launches:
+        w.launches += n
 
 
 class _ScanGraph(NamedTuple):
@@ -539,8 +587,8 @@ class VOFrontend:
                     dres.new, state.klm, V, cam.zfm,
                     k_px=float(p.LocationUncertaintyMatch) / 2.0)
                 s_meas = torch.where(est_ok & (n_sc >= 100), s_meas, one)
-                aV_cur = R.T @ state.aV + V
-                aR_cur = R.T @ state.aR
+                aV_cur = matmul(R.T, state.aV) + V
+                aR_cur = matmul(R.T, state.aR)
                 s_long, n_long, _ = anchor_scale_measure(
                     dres.new, aR_cur, aV_cur, cam.zfm)
                 # age-based epochs
@@ -567,7 +615,7 @@ class VOFrontend:
                 V = torch.where(sm_ok, V * (mag_sm / mag2), V)
                 # epoch bookkeeping: compose this frame's (refined)
                 # motion; reset at the epoch boundary
-                aV_cur = R.T @ state.aV + V
+                aV_cur = matmul(R.T, state.aV) + V
                 aR_new = torch.where(at_epoch, torch.eye(3, dtype=V.dtype,
                                                          device=V.device),
                                      aR_cur)
@@ -761,14 +809,14 @@ class VOFrontend:
                                     stereo)
 
         K_scale = state.K_scale
-        Pose = state.Pose @ R
+        Pose = matmul(state.Pose, R)
         # gauge-consistent export (mono): multiply exported displacements
         # by the cumulative rescaling ratio (see the JAX package)
         if p.GaugeExport:
             G_gauge = torch.clamp(state.G_gauge * Kp_gauge, 1e-4, 1e4)
         else:
             G_gauge = state.G_gauge
-        Pos = state.Pos - Pose @ (V_out * K_scale * G_gauge)
+        Pos = state.Pos - matmul(Pose, V_out * K_scale * G_gauge)
 
         with record_function("vo.keyframe"):
             (kf_carry, new_final, Pose, Pos, kf_id, kf_back_m,
@@ -1076,49 +1124,39 @@ class VOFrontend:
         g.ts.copy_(ts)
         if state is not self._scan_state:
             _copy_state_(self._scan_state, state)
-        g.graph.replay()
-        for fn, n in g.launches:
-            fn.launches += n
-        return self._scan_state, _tree_map(torch.clone, g.outs)
+        replay_graph(g.graph, g.launches)
+        return self._scan_state, tree_map(torch.clone, g.outs)
 
     def _capture_scan(self, state: VOState, frames: Tensor,
                       ts: Tensor) -> _ScanGraph:
         """Capture len(frames) donated steps from the static state as one
-        CUDA graph, PyTorch's recipe: a few warm-up steps on a side
-        stream (they create the cuBLAS and cuSOLVER handles and load the
-        kernels) on a clone of `state`, so the caller's state does not
-        advance; then the capture, which ends by copying the final state
-        into the static one. Launches recorded by the capture are taken
-        off the wrappers' counts; each replay adds them back."""
-        from rebvo_tpu_torch.kernels.cuda_scale_space import WRAPPERS
+        CUDA graph (`capture_graph`): the warm-up runs two steps on a
+        clone of `state`, so the caller's state does not advance; the
+        capture ends by copying the final state into the static one."""
         if self._scan_state is None:
-            self._scan_state = _tree_map(torch.clone, state)
+            self._scan_state = tree_map(torch.clone, state)
             self._scan_pool = torch.cuda.graph_pool_handle()
         static = self._scan_state
         frames_s, ts_s = frames.clone(), ts.clone()
-        main = torch.cuda.current_stream(frames.device)
-        side = torch.cuda.Stream(device=frames.device)
-        side.wait_stream(main)
-        with torch.cuda.stream(side):
-            st = _tree_map(torch.clone, state)
+
+        def warmup():
+            st = tree_map(torch.clone, state)
             for i in range(min(2, frames.shape[0])):
                 st, _ = self.step_donated(st, frames_s[i], ts_s[i])
-        main.wait_stream(side)
-        del st
-        before = [fn.launches for fn in WRAPPERS]
-        graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph, pool=self._scan_pool):
+
+        def steps():
             st, outs = static, []
             for i in range(frames.shape[0]):
                 st, out = self.step_donated(st, frames_s[i], ts_s[i])
                 outs.append(out)
-            outs = _stack_outputs(outs)
-            _copy_state_(static, st)
-        launches = []
-        for fn, n0 in zip(WRAPPERS, before):
-            launches.append((fn, fn.launches - n0))
-            fn.launches = n0
-        g = _ScanGraph(graph, frames_s, ts_s, outs, tuple(launches))
+            outs = _stack_outputs(outs)     # before the copy: an output
+            _copy_state_(static, st)        # may be a static state leaf
+            return outs
+
+        with torch.cuda.device(frames.device):
+            graph, outs, launches = capture_graph(steps, (), self._scan_pool,
+                                                  warmup)
+        g = _ScanGraph(graph, frames_s, ts_s, outs, launches)
         self._scan_graphs[tuple(frames.shape)] = g
         return g
 
@@ -1126,14 +1164,16 @@ class VOFrontend:
 
     def _log_nav(self, state: VOState, out: FrameOutput, donate: bool):
         """Append the packed nav row to the device ring: in place when the
-        input state is donated, else into a copy of the ring."""
+        input state is donated, else into a copy of the ring. The in-place
+        append is `index_put_`, which vmap batches (it has no rule for
+        `index_copy_`)."""
         if self.params.NavLogCap <= 0:
             return state.navlog, state.navlog_n
         cap = state.navlog.shape[0]
         row = pack_nav_row(out)
         idx = (state.navlog_n % cap).to(torch.int64).reshape(1)
         if donate:
-            navlog = state.navlog.index_copy_(0, idx, row[None])
+            navlog = state.navlog.index_put_((idx,), row[None])
         else:
             navlog = state.navlog.index_copy(0, idx, row[None])
         return navlog, state.navlog_n + 1

@@ -337,32 +337,81 @@ def detect_candidates_cuda(img: Tensor, grad_thresh, *, sigma0: float,
     contiguous; `grad_thresh` a tensor on the same device (scalar, or one
     value per leading batch index), read by the kernel on the device.
     A CPU `img` runs the plain version; a CUDA `img` launches the kernel.
-    Each launch adds one to `detect_candidates_cuda.launches`."""
-    if img.device.type == "cpu":
-        return detect_candidates_plain(
-            img, grad_thresh, sigma0=sigma0, k_sigma=k_sigma, box_n=box_n,
-            win_s=win_s, per_hist=per_hist, dog_thresh=dog_thresh,
-            max_img_value=max_img_value)
-    if img.device.type != "cuda":
+    Each launch adds one to `detect_candidates_cuda.launches`.
+
+    The call goes through the custom op `rebvo_tpu_torch::
+    detect_candidates`, whose vmap rule hands the frames of every vmapped
+    lane to one call: under `torch.func.vmap` K1 launches once over
+    [B, ..., H, W] with one threshold per frame (the plain version runs
+    on a CPU batch alike), and `.launches` counts that launch once."""
+    if img.device.type not in ("cpu", "cuda"):
         raise ValueError(f"detect_candidates_cuda: unsupported device "
                          f"{img.device}")
-    _check_image("detect_candidates_cuda", img)
+    if img.device.type == "cpu" and not isinstance(grad_thresh, Tensor):
+        grad_thresh = torch.as_tensor(grad_thresh, dtype=torch.float32)
     if not (isinstance(grad_thresh, Tensor)
             and grad_thresh.device == img.device
             and grad_thresh.dtype == torch.float32):
-        raise TypeError("detect_candidates_cuda: grad_thresh must be a "
-                        "float32 tensor on the image's device")
-    cand = detect_launch(
-        _launcher(), img, grad_thresh,
-        torch.cuda.current_stream(img.device).cuda_stream, sigma0=sigma0,
-        k_sigma=k_sigma, box_n=box_n, win_s=win_s, per_hist=per_hist,
-        dog_thresh=dog_thresh, max_img_value=max_img_value)
-    if img.numel() > 0:
-        detect_candidates_cuda.launches += 1
-    return cand
+        if img.device.type == "cuda":
+            raise TypeError("detect_candidates_cuda: grad_thresh must be a "
+                            "float32 tensor on the image's device")
+        grad_thresh = grad_thresh.to(device=img.device, dtype=torch.float32)
+    out = _detect_op(img, grad_thresh, float(sigma0), float(k_sigma),
+                     int(box_n), int(win_s), float(per_hist),
+                     float(dog_thresh), float(max_img_value))
+    return EdgeCandidates(*out)
 
 
 detect_candidates_cuda.launches = 0
+
+
+@torch.library.custom_op("rebvo_tpu_torch::detect_candidates",
+                         mutates_args=())
+def _detect_op(img: Tensor, grad_thresh: Tensor, sigma0: float,
+               k_sigma: float, box_n: int, win_s: int, per_hist: float,
+               dog_thresh: float, max_img_value: float
+               ) -> Tuple[Tensor, Tensor, Tensor, Tensor, Tensor, Tensor]:
+    """K1 on the CUDA device, its plain version on the CPU: (mask,
+    theta_x, theta_y, xs, ys, n2_m)."""
+    kw = dict(sigma0=sigma0, k_sigma=k_sigma, box_n=box_n, win_s=win_s,
+              per_hist=per_hist, dog_thresh=dog_thresh,
+              max_img_value=max_img_value)
+    if img.device.type == "cpu":
+        return tuple(detect_candidates_plain(img, grad_thresh, **kw))
+    _check_image("detect_candidates_cuda", img)
+    cand = detect_launch(
+        _launcher(), img, grad_thresh,
+        torch.cuda.current_stream(img.device).cuda_stream, **kw)
+    if img.numel() > 0:
+        detect_candidates_cuda.launches += 1
+    return tuple(cand)
+
+
+@_detect_op.register_fake
+def _detect_fake(img, grad_thresh, *cfg):
+    return (torch.empty_like(img, dtype=torch.bool),) + tuple(
+        torch.empty_like(img, dtype=torch.float32) for _ in range(5))
+
+
+def _detect_vmap(info, in_dims, img, grad_thresh, *cfg):
+    """vmap rule of K1: the lanes' frames [B, ..., H, W] in one call, each
+    frame with its lane's threshold."""
+    B = info.batch_size
+    img_dim, th_dim = in_dims[:2]
+    img = (img.movedim(img_dim, 0) if img_dim is not None
+           else img.expand((B,) + img.shape))
+    lane = img.shape[1:-2]
+    if th_dim is not None:
+        th = grad_thresh.movedim(th_dim, 0)
+        grad_thresh = th.reshape((B,) + (1,) * (len(lane) - th.ndim + 1) +
+                                 th.shape[1:])
+    grad_thresh = grad_thresh.expand((B,) + lane)
+    out = _detect_op(img.contiguous(), grad_thresh.contiguous(), *cfg)
+    return out, (0,) * len(out)
+
+
+torch.library.register_vmap("rebvo_tpu_torch::detect_candidates",
+                            _detect_vmap)
 
 
 def sspace_halo(sizes0: List[int], sizes1: List[int]) -> int:

@@ -11,7 +11,7 @@ from typing import Tuple
 
 import torch
 
-from rebvo_tpu_torch.core.numerics import to_int32
+from rebvo_tpu_torch.core.numerics import sum64, to_int32
 from rebvo_tpu_torch.frontend.state import (RHO_INIT, RHO_MAX, RHO_MIN,
                                             KeylineMap)
 
@@ -114,8 +114,8 @@ def estimate_rescaling_opt(klm: KeylineMap, *, s_rho_min: float = RHO_MAX,
     RKp = one
     for _ in range(iters):
         w = torch.where(use, 1.0 / (s2 + Kp * Kp * s02), zero)
-        rTr = torch.sum(rho2 * w)
-        rTr0 = torch.sum(rho02 * w)
+        rTr = sum64(rho2 * w)
+        rTr0 = sum64(rho02 * w)
         pos = rTr0 > 0
         safe = torch.where(pos, rTr0, one)
         Kp = torch.where(pos, torch.sqrt(rTr / safe), one)
@@ -141,8 +141,7 @@ def estimate_quantile(klm: KeylineMap, *, s_rho_min: float = RHO_MIN,
     i = torch.clamp(i, 0, nbins - 1)
     i_eff = torch.where(klm.valid, i, torch.full_like(i, nbins)).to(torch.int64)
     hist = torch.zeros(nbins + 1, dtype=torch.int32, device=dev)
-    hist.scatter_add_(0, i_eff, torch.ones_like(i))
-    hist = hist[:nbins]
+    hist = hist.scatter_add(0, i_eff, torch.ones_like(i))[:nbins]
     shifted = torch.cat([torch.zeros(1, dtype=torch.int32, device=dev),
                          torch.cumsum(hist, dim=0, dtype=torch.int32)[:-1]])
     reached = shifted.to(torch.float32) > percentile * kn.to(torch.float32)

@@ -143,9 +143,10 @@ def compact_keylines(cand: EdgeCandidates, *, K: int, kl_max: int,
     pos = torch.cumsum(flat.to(torch.int32), dim=0) - 1
     take = flat & (pos < K)
     dest = torch.where(take, pos.to(torch.int64), torch.full_like(pix_all, K))
-    pix_idx = torch.zeros(K + 1, dtype=torch.int64, device=dev)
-    pix_idx.scatter_(0, dest, pix_all)       # slot K is the dump slot
-    pix_idx = pix_idx[:K]
+    # out of place throughout (scatter, scatter_reduce, scatter_add):
+    # under vmap the source is batched and the fresh buffer is not
+    pix_idx = torch.zeros(K + 1, dtype=torch.int64, device=dev).scatter(
+        0, dest, pix_all)[:K]                # slot K is the dump slot
 
     total = torch.sum(flat, dtype=torch.int32)
     n_keep = torch.clamp(total, max=min(kl_max, K))
@@ -172,8 +173,8 @@ def compact_keylines(cand: EdgeCandidates, *, K: int, kl_max: int,
     # id-mask image: keyline slot at its integer pixel, -1 elsewhere; the
     # extra element n_pix is the dump slot of the reference's mode="drop"
     drop = torch.where(valid, pix_idx, torch.full_like(pix_idx, n_pix))
-    mask_img = torch.full((n_pix + 1,), -1, dtype=torch.int32, device=dev)
-    mask_img.scatter_(0, drop, slot)
+    mask_img = torch.full((n_pix + 1,), -1, dtype=torch.int32,
+                          device=dev).scatter(0, drop, slot)
     mask_img = mask_img[:n_pix].reshape(H, W)
 
     # join_edges: next-id via quadrant gather, prev-id via scatter-max
@@ -197,8 +198,8 @@ def compact_keylines(cand: EdgeCandidates, *, K: int, kl_max: int,
     tgt = torch.where((n_id >= 0) & valid, n_id,
                       torch.full_like(n_id, K)).to(torch.int64)
     p_id = torch.full((K + 1,), -1, dtype=torch.int32, device=dev)
-    p_id.scatter_reduce_(0, tgt, slot, reduce="amax", include_self=True)
-    p_id = p_id[:K]
+    p_id = p_id.scatter_reduce(0, tgt, slot, reduce="amax",
+                               include_self=True)[:K]
 
     dt = gx.dtype
     f0 = torch.zeros((K,), dtype=dt, device=dev)
@@ -254,8 +255,7 @@ def re_estimate_thresh(klm: KeylineMap, knum: int, nbins: int) -> Tensor:
     i = torch.clamp(to_int32(nbins * (max_dog - n_m) / span), 0, nbins - 1)
     i_eff = torch.where(valid, i, torch.full_like(i, nbins)).to(torch.int64)
     hist = torch.zeros(nbins + 1, dtype=torch.int32, device=n_m.device)
-    hist.scatter_add_(0, i_eff, torch.ones_like(i))
-    hist = hist[:nbins]
+    hist = hist.scatter_add(0, i_eff, torch.ones_like(i))[:nbins]
     csum = torch.cumsum(hist, dim=0) - hist[0]      # sum of bins 1..i
     reached = csum >= knum
     first = torch.argmax(reached.to(torch.int32))

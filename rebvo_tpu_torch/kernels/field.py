@@ -46,9 +46,8 @@ def build_field(klm: KeylineMap, min_mod: Tensor, *, radius: int,
     flat_idx = torch.where(inb, yi * width + xi,
                            torch.full_like(xi, n_pix)).to(torch.int64)
     field = torch.full((n_pix + 1,), _EMPTY, dtype=torch.int32, device=dev)
-    field.scatter_reduce_(0, flat_idx.reshape(-1), key.reshape(-1),
-                          reduce="amin", include_self=True)
-    field = field[:n_pix]
+    field = field.scatter_reduce(0, flat_idx.reshape(-1), key.reshape(-1),
+                                 reduce="amin", include_self=True)[:n_pix]
     ikl = torch.where(field == _EMPTY, torch.full_like(field, -1),
                       K - 1 - (field & ((1 << _SLOT_BITS) - 1)))
     return ikl.reshape(height, width)

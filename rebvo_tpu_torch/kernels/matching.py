@@ -18,7 +18,7 @@ from typing import NamedTuple, Tuple
 
 import torch
 
-from rebvo_tpu_torch.core.numerics import round_int
+from rebvo_tpu_torch.core.numerics import matmul, round_int
 from rebvo_tpu_torch.frontend.state import KeylineMap
 
 Tensor = torch.Tensor
@@ -43,15 +43,15 @@ def forward_match(old: KeylineMap, new: KeylineMap,
     neg_inf = torch.full_like(old.rho, -float("inf"))
     best_rho = torch.full((K + 1,), -float("inf"), dtype=old.rho.dtype,
                           device=dev)
-    best_rho.scatter_reduce_(0, tgt64, torch.where(src_ok, old.rho, neg_inf),
-                             reduce="amax", include_self=True)
+    best_rho = best_rho.scatter_reduce(
+        0, tgt64, torch.where(src_ok, old.rho, neg_inf), reduce="amax",
+        include_self=True)
     src_idx = torch.arange(K, dtype=torch.int32, device=dev)
     is_best = src_ok & (old.rho == best_rho[torch.clamp(tgt64, max=K - 1)])
     winner = torch.full((K + 1,), -1, dtype=torch.int32, device=dev)
-    winner.scatter_reduce_(
+    winner = winner.scatter_reduce(
         0, torch.where(is_best, tgt64, torch.full_like(tgt64, K)), src_idx,
-        reduce="amax", include_self=True)
-    winner = winner[:K]
+        reduce="amax", include_self=True)[:K]
 
     has = winner >= 0
     w = torch.clamp(winner, min=0)
@@ -93,8 +93,8 @@ def _search_line(new: KeylineMap, Vel, RVel, BackRot, zfm, cx, cy,
                  max_radius, loc_uncertainty):
     """Back-rotated query positions, the displacement direction and its
     uncertainty, and the search interval (shared by both matchers)."""
-    Vel = BackRot @ Vel
-    RVel = BackRot @ RVel @ BackRot.T
+    Vel = matmul(BackRot, Vel)
+    RVel = matmul(matmul(BackRot, RVel), BackRot.T)
     p3x = BackRot[0, 0] * new.px + BackRot[0, 1] * new.py + BackRot[0, 2] * zfm
     p3y = BackRot[1, 0] * new.px + BackRot[1, 1] * new.py + BackRot[1, 2] * zfm
     p3z = BackRot[2, 0] * new.px + BackRot[2, 1] * new.py + BackRot[2, 2] * zfm
@@ -110,7 +110,7 @@ def _search_line(new: KeylineMap, Vel, RVel, BackRot, zfm, cx, cy,
 
     DrDv = torch.stack([torch.full_like(pmx, zfm), torch.full_like(pmx, zfm),
                         -pmx - pmy], dim=-1)                    # [K,3]
-    sigma2_t = torch.sum((DrDv @ RVel) * DrDv, dim=-1)
+    sigma2_t = torch.sum(matmul(DrDv, RVel) * DrDv, dim=-1)
 
     moving = norm_t0 > 1e-6
     one = torch.ones_like(norm_t0)

@@ -11,7 +11,14 @@ deviation from the reference). Here:
   * the LM loops have fixed iteration counts and select with `where`, and
     the linear solves are `solve_ex` / `inv_ex` (no error check, so no
     host sync; a singular system still gives non-finite values, which the
-    step's nan_fail test relies on).
+    step's nan_fail test relies on);
+  * the LM's sums (J^T J, J^T F, the score, the predicted gain) are
+    accumulated in float64 and rounded once to float32, its 6x6 solves
+    and the in-plane rotation's sin and cos run in float64: its accept
+    tests and rung choice compare these numbers, and a float32 sum in
+    another order (the card's against the CPU's) flips them on a few
+    frames of a long run, which the stereo scale carry then amplifies
+    (core/numerics' module note).
 """
 
 from __future__ import annotations
@@ -21,7 +28,7 @@ from typing import NamedTuple
 import torch
 
 from rebvo_tpu_torch.core.geometry import so3_exp
-from rebvo_tpu_torch.core.numerics import round_int
+from rebvo_tpu_torch.core.numerics import matmul, round_int, sum64
 from rebvo_tpu_torch.frontend.state import KeylineMap
 
 Tensor = torch.Tensor
@@ -49,6 +56,14 @@ class TryVelRotResult(NamedTuple):
     residual: Tensor  # [..., K]
     m_id_f: Tensor    # [..., K] forward match ids (-1 = none)
     q_rho: Tensor     # [..., K] noise shaping at this state
+
+
+def _solve64(A: Tensor, b: Tensor) -> Tensor:
+    return torch.linalg.solve_ex(A.double(), b.double())[0].to(A.dtype)
+
+
+def _inv64(A: Tensor) -> Tensor:
+    return torch.linalg.inv_ex(A.double())[0].to(A.dtype)
 
 
 def try_vel_rot(X: Tensor, old: KeylineMap, fv: FieldView,
@@ -101,8 +116,8 @@ def try_vel_rot(X: Tensor, old: KeylineMap, fv: FieldView,
     no_kl = j < 0
     fa = fv.attrs[j_safe]                             # [..., K, 8]
 
-    c = e(torch.cos(W[..., 2]))
-    s = e(torch.sin(W[..., 2]))
+    c = e(torch.cos(W[..., 2].double()).to(W.dtype))
+    s = e(torch.sin(W[..., 2].double()).to(W.dtype))
     gmx = c * old.gx - s * old.gy
     gmy = s * old.gx + c * old.gy
     f_gx = fa[..., 4]
@@ -140,7 +155,7 @@ def try_vel_rot(X: Tensor, old: KeylineMap, fv: FieldView,
     cost = torch.where(gated, zk, torch.where(matched, cost_m,
                                               torch.full_like(r, k * k)))
     voter = old.valid if vote_mask is None else (old.valid & vote_mask)
-    score = torch.sum(torch.where(voter, cost, zk), dim=-1)
+    score = sum64(torch.where(voter, cost, zk), dim=-1)
 
     m_id_f = torch.where(matched, j, torch.full_like(j, -1))
 
@@ -154,8 +169,8 @@ def try_vel_rot(X: Tensor, old: KeylineMap, fv: FieldView,
     J = torch.where(vm[..., None], J, torch.zeros_like(J))
     fw = torch.where(vm, r * torch.sqrt(w), zk)
 
-    JtJ = J.transpose(-1, -2) @ J
-    JtF = (J.transpose(-1, -2) @ fw[..., None])[..., 0]
+    JtJ = matmul(J.transpose(-1, -2), J)
+    JtF = matmul(J.transpose(-1, -2), fw[..., None])[..., 0]
     return TryVelRotResult(score=score, JtJ=JtJ, JtF=JtF,
                            residual=torch.where(matched, fi, zk),
                            m_id_f=m_id_f, q_rho=q_self)
@@ -169,7 +184,7 @@ def _lm_damping_update(u, v, gain):
 def _solve_lm(JtJ: Tensor, JtF: Tensor, u: Tensor) -> Tensor:
     eye = torch.eye(JtJ.shape[-1], dtype=JtJ.dtype, device=JtJ.device)
     A = JtJ + u[..., None, None] * eye
-    return torch.linalg.solve_ex(A, -JtF)[0]
+    return _solve64(A, -JtF)
 
 
 def _pick(a: Tensor, i: Tensor) -> Tensor:
@@ -211,7 +226,7 @@ def _lm_phase(ev, X0: Tensor, n_iter: int, tau: float):
         h_new = _solve_lm(JtJ, JtF, u)
         Xn = X + h_new
         rn = ev(Xn)
-        pred = 0.5 * torch.sum(h_new * (u[..., None] * h_new - JtF), dim=-1)
+        pred = 0.5 * sum64(h_new * (u[..., None] * h_new - JtF), dim=-1)
         gain = (F - rn.score) / pred
         acc = gain > 0
         X = _where(acc, Xn, X)
@@ -268,7 +283,7 @@ def minimizer_rv(Vel: Tensor, W0: Tensor, old: KeylineMap, fv: FieldView,
 
     X, F, JtJ, JtF, m_id_f, eff, h, F0 = _lm_phase(ev, X, iter_max, tau)
 
-    RRV = torch.linalg.inv_ex(JtJ)[0]
+    RRV = _inv64(JtJ)
     any_eff = eff > 0
     rel_error = torch.where(
         any_eff, torch.linalg.norm(h) / (torch.linalg.norm(X) + 1e-30),
@@ -322,7 +337,7 @@ def minimizer_v(Vel: Tensor, old: KeylineMap, fv: FieldView, *,
             h = _solve_lm(JtJ, JtF, u)
             Vn = V + h
             rn = ev(Vn)
-            pred = 0.5 * torch.sum(h * (u[..., None] * h - JtF), dim=-1)
+            pred = 0.5 * sum64(h * (u[..., None] * h - JtF), dim=-1)
             gain = (F - rn.score) / pred
             acc = gain > 0
             V = _where(acc, Vn, V)
@@ -342,5 +357,5 @@ def minimizer_v(Vel: Tensor, old: KeylineMap, fv: FieldView, *,
     take = _pick(Fr, rung_i) < 0.98 * F0_
     V = torch.where(take, _pick(Vr, rung_i), V0)
     V, F, JtJ, JtF, m_id_f = lm_phase(V, iter_max)
-    RVel = torch.linalg.inv_ex(JtJ)[0]
+    RVel = _inv64(JtJ)
     return MinimizerVResult(Vel=V, RVel=RVel, m_id_f=m_id_f, score=F)

@@ -24,7 +24,7 @@ from typing import NamedTuple
 
 import torch
 
-from rebvo_tpu_torch.core.numerics import div_const, round_int
+from rebvo_tpu_torch.core.numerics import div_const, matmul, round_int
 from rebvo_tpu_torch.core.stats import masked_median
 from rebvo_tpu_torch.frontend.state import (RHO_INIT, RHO_MAX, RHO_MIN,
                                             KeylineMap)
@@ -270,10 +270,10 @@ def anchor_scale_measure(klm: KeylineMap, aR: Tensor, aV: Tensor, zfm: float,
     eye6 = torch.eye(6, dtype=dt, device=aV.device)
     for _ in range(3):
         Aw = A * w[:, None]
-        AtA = Aw.T @ A + 1e-4 * eye6
-        Atb = Aw.T @ r0
+        AtA = matmul(Aw.T, A) + 1e-4 * eye6
+        Atb = matmul(Aw.T, r0)
         x = torch.linalg.solve_ex(AtA, Atb[:, None])[0][:, 0]
-        resid = r0 - A @ x
+        resid = r0 - matmul(A, x)
         w = (use & (torch.abs(resid) <= k_px)).to(dt)
     t_new = aV + x[:3] * tsc         # undo the column scaling: metres
     s = torch.linalg.norm(t_new) / torch.clamp(torch.linalg.norm(aV),

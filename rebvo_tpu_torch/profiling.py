@@ -20,6 +20,7 @@ outside the tensor cores.
 
 from __future__ import annotations
 
+import math
 import time
 from typing import Dict
 
@@ -229,8 +230,23 @@ def roofline(fe, stage_ms: Dict[str, float]) -> Dict[str, float]:
 def step_cost_analysis(fe, state, frame) -> Dict[str, float]:
     """FLOPs of one step, counted by torch.utils.flop_counter: matrix
     products only (mm, bmm, addmm, convolutions), unlike XLA's cost
-    analysis in the JAX package, which counts every operation."""
+    analysis in the JAX package, which counts every operation. On the
+    CPU the step forms its products as `torch.linalg.vecdot` of
+    broadcast operands (core/numerics.matmul), counted here as an mm of
+    the same shapes: 2 n k m."""
+    from torch.overrides import TorchFunctionMode
     from torch.utils.flop_counter import FlopCounterMode
-    with FlopCounterMode(display=False) as fc:
+
+    class VecdotFlops(TorchFunctionMode):
+        flops = 0
+
+        def __torch_function__(self, func, types, args=(), kwargs=None):
+            if func is torch.linalg.vecdot:
+                self.flops += 2 * math.prod(torch.broadcast_shapes(
+                    args[0].shape, args[1].shape))
+            return func(*args, **(kwargs or {}))
+
+    with FlopCounterMode(display=False) as fc, VecdotFlops() as vd:
         fe.step(state, frame, 0.05)
-    return dict(matmul_flops_per_step=float(fc.get_total_flops()))
+    return dict(matmul_flops_per_step=float(fc.get_total_flops()
+                                            + vd.flops))

@@ -142,8 +142,11 @@ def test_schur_solve_matches_jax(damping):
     blocks = [np.array(x) for x in jba._reduce_terms(*terms, jp, 6)][:5]
     dx_j, dr_j = jba._schur_solve(*[jnp.asarray(x) for x in blocks], 6,
                                   jnp.asarray(damping, jnp.float32))
-    dx_t, dr_t = tba._schur_solve(*[torch.as_tensor(x) for x in blocks], 6,
-                                  torch.tensor(damping))
+    H_t, b_t, h_t, g_t, S_t = [torch.as_tensor(x) for x in blocks]
+    H_red, b_red, inv_h = tba._schur_block(H_t, b_t, h_t, g_t, S_t,
+                                           torch.tensor(damping))
+    dx_t = tba._solve_reduced(H_red, b_red, 6, torch.tensor(damping))
+    dr_t = -inv_h * (g_t + S_t @ dx_t)
     assert float(dx_t[:6].abs().max()) == 0.0          # the pinned pose
     if damping == 1.0:
         close_rel(dx_j, dx_t, rtol=1e-3)
@@ -466,9 +469,28 @@ def test_run_ba_matches_jax(tmp_path, capsys):
     assert len(rows) == F
 
 
-def test_run_ba_refuses_shards(tmp_path):
-    """--shards N > 1 names the ROADMAP item that ports it."""
+def test_run_ba_shards_matches_one_shard(kf_runs, tmp_path, capsys):
+    """run_ba --shards 2 (the landmarks in two blocks, their shares of the
+    reduced system summed in one process) on the port's run_vo store:
+    the same problem and first cost as --shards 1, and the floor within
+    1e-3 of it, relative to the first cost."""
+    import json
+
     from rebvo_tpu_torch.apps import run_ba as trb
-    with pytest.raises(SystemExit) as e:
-        trb.main([str(tmp_path / "none.npz"), "--shards", "2", "--cpu"])
-    assert e.value.code == 2
+    line = {}
+    for n in (1, 2):
+        capsys.readouterr()
+        rc = trb.main([kf_runs["port"], "--config",
+                       str(kf_runs["dir"] / "run.cfg"), "--cpu",
+                       "--rounds", "1", "--iters", "12", "--shards", str(n),
+                       "--out", str(tmp_path / f"s{n}.npz")])
+        assert rc == 0
+        line[n] = json.loads(capsys.readouterr().out.strip()
+                             .splitlines()[-1])
+    assert line[2]["shards"] == 2 and line[1]["shards"] == 1
+    for k in ("keyframes", "landmarks", "observations"):
+        assert line[2][k] == line[1][k], k
+    c0 = line[1]["cost_initial"]
+    assert line[1]["cost_final"] < c0
+    np.testing.assert_allclose(line[2]["cost_initial"], c0, rtol=1e-5)
+    assert abs(line[2]["cost_final"] - line[1]["cost_final"]) <= 1e-3 * c0

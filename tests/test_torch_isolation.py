@@ -73,6 +73,17 @@ assert costs.shape == (2,) and bool(costs.isfinite().all())
 pb = ba.problem_from_keyframes(sys_.kf_store, 48.0, width=96, height=64,
                                cx=48.0, cy=32.0)
 assert pb.obs_lm.shape[0] > 0
+# the parallel layer: the batched step, the sharded BA, their apps
+import rebvo_tpu_torch.parallel.mesh, rebvo_tpu_torch.parallel.distributed
+import rebvo_tpu_torch.apps.run_batch, rebvo_tpu_torch.apps.run_multihost
+import rebvo_tpu_torch.entry
+pos = rebvo_tpu_torch.entry.dryrun_multichip(2)
+assert pos.shape == (2, 3) and np.all(np.isfinite(pos))
+part = ba.partition_problem(prob, 2)
+_, _, _, costs = ba.ba_solve_sharded(torch.as_tensor(R),
+                                     torch.as_tensor(p_true) + 0.01, part,
+                                     200.0, n_shards=2, iters=2)
+assert costs.shape == (2,) and bool(costs.isfinite().all())
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith(("jax.", "jaxlib"))
              or m == "rebvo_tpu" or m.startswith("rebvo_tpu."))
@@ -97,7 +108,8 @@ _FORBIDDEN = re.compile(
 @pytest.mark.parametrize("path", sorted(
     str(p.relative_to(ROOT)) for p in PKG.rglob("*.py")) +
     ["chip_smoke.py", "tools/kernel_ab.py", "tools/stereo_bars.py",
-     "tools/vi_scale_cpu.py", "tools/parity_cpu.py"])
+     "tools/vi_scale_cpu.py", "tools/parity_cpu.py",
+     "tools/loop_st_probe.py"])
 def test_source_imports_no_jax(path):
     """No module of the port (nor chip_smoke.py and the port's tools)
     imports jax, jaxlib or rebvo_tpu, even lazily inside a function."""
