@@ -98,10 +98,24 @@ Phases, each printing one JSON line; any failure exits non-zero:
                 rebvo_tpu_torch.apps.run_multihost --nprocs 2 --check-ba
                 --backend gloo (the two ranks share the card): the
                 all-reduce check and the sharded BA's parity;
+  15. m13_m15 — the last modules at the default config, on phase 4's
+                frames: VOSystem with VideoNetEnabled=1 (raw video) over 21
+                frames to an EdgeMapReceiver in a thread (at least 18 of
+                the 20 packets, each equal to that frame's edge map
+                quantized on the host; K1 once a frame; ms a frame with and
+                without the sender, in turns with a twin system); fill_depth
+                on the card against the CPU on each sent edge map in every
+                bound_mode (60x94 grid, 60 iterations); build_ocgrid and
+                ray_cut_visibility over the fills' world points, card
+                against the CPU; apps.visualizer.run over loopback with its
+                dense fills on the card; run_vo --save-video raw (10
+                frames, pixels equal); run_vo --interactive with 's' after
+                frame 50; save_state after 10 frames, load_state, 5 more
+                steps against the run that was not interrupted;
   9. kernels  — the kernel list, with K1's launches on every path.
-Each path (phases 4, 4b, 6, 6b, 8, 10, 10c, 11, 11c, 11e, 12b, 13) starts
-with every kernel's launch count at 0 and reports the counts it ends
-with. Each phase line carries `elapsed_s`, the seconds since the script started.
+Each path (phases 4, 4b, 6, 6b, 8, 10, 10c, 11, 11c, 11e, 12b, 13, 15)
+starts with every kernel's launch count at 0 and reports the counts it
+ends with. Each phase line carries `elapsed_s`, the seconds since the script started.
 Then the nvidia-smi line, and last {"ok": true, "device": {...}}. Longer
 artefacts go to chiprun_out/smoke/.
 """
@@ -209,6 +223,20 @@ ST_ATE_METRIC = 0.5
 # frames (JAX at full width: 0.0246 of the extent, K within 0.92-1.10)
 ST_VIO_ATE_METRIC = 0.25
 ST_CPU_NUM = 0.01        # phase 11d: stereo_num, CPU against the card
+N_TEL = 20               # phase 15: telemetry packets sent (after bootstrap)
+TEL_MIN_PACKETS = 18     # of them received (the channel is lossy)
+FILL_BLOCK, FILL_ITERS = 8, 60     # a 60x94 grid at 752x480
+# fill_depth card against CPU: rho and s_rho within this share of each
+# array's largest entry (tests/test_torch_depth_filler.py's FILL_REL)
+FILL_REL = 2e-5
+VIS_MISMATCH = 0.01      # ray-cut visibility: counted mismatch share
+# occupancy grid: OC_CELLS a side over the box of the rays (the last
+# frame's camera to the first frame's surfels); surfels outside it, and
+# any farther than 1 / SURFEL_RHO_MIN, stay out
+OC_CELLS = 256
+SURFEL_RHO_MIN = 0.1
+N_VIDEO = 10             # run_vo --save-video frames
+N_CKPT, N_RESUME = 10, 5     # frames before the checkpoint, steps after
 KL_FLOOR = 2000          # keylines a textured 752x480 frame must give
 SS_MAPS = ("img0", "img1", "dog", "dx", "dy")
 CAND_MAPS = ("theta_x", "theta_y", "xs", "ys", "n2_m")
@@ -1319,6 +1347,344 @@ def distributed_phase(smi, kf):
     return ok
 
 
+def free_udp_port() -> int:
+    import socket
+    with socket.socket(socket.AF_INET, socket.SOCK_DGRAM) as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _receive(rx, pkts, n, stop):
+    """Collect up to n packets from `rx` into `pkts` (a thread's body);
+    once `stop` is set, return at the first silent half second."""
+    while len(pkts) < n:
+        pkt = rx.recv(timeout_ms=500)
+        if pkt is not None:
+            pkts.append(pkt)
+        elif stop.is_set():
+            return
+
+
+def m13_phase(smi, p, gpu_frames, ts):
+    """Phase 15: the last modules on the card at the default config.
+    (a) VOSystem with VideoNetEnabled=1 (raw video) over N_TEL + 1 of
+    phase 4's frames, an EdgeMapReceiver in a thread of this process, in
+    turns with a twin VOSystem without the sender; (b) fill_depth on the
+    card against the CPU on each sent edge map in every bound_mode;
+    (c) build_ocgrid and ray_cut_visibility over the fills' world points,
+    card against the CPU on the same points; (d) apps.visualizer.run over
+    loopback with its dense fills on the card; (e) run_vo --save-video
+    raw; (f) run_vo --interactive with 's' on stdin; (g) save_state after
+    10 frames, load_state into a fresh state, 5 more steps against the
+    run that was not interrupted. Returns (K1 launches of (a), ok)."""
+    import threading
+
+    from rebvo_tpu_torch.apps import run_vo, visualizer
+    from rebvo_tpu_torch.backend import surface
+    from rebvo_tpu_torch.frontend.step import tree_leaves
+    from rebvo_tpu_torch.io import native, telemetry
+    from rebvo_tpu_torch.io.telemetry import EdgeMapReceiver, EdgeMapSender
+    from rebvo_tpu_torch.io.video import _to_u8, read_video_stream
+    from rebvo_tpu_torch.kernels import depth_filler
+    from rebvo_tpu_torch.runtime_utils import load_state, save_state
+    from rebvo_tpu_torch.system import VOSystem
+
+    out_dir = os.path.join(OUT, "m13")
+    os.makedirs(out_dir, exist_ok=True)
+    res, oks = {"phase": "m13_m15", "card": smi}, {}
+
+    # (a) telemetry --------------------------------------------------------
+    port = free_udp_port()
+    rx = EdgeMapReceiver("127.0.0.1", port)
+    pkts, stop = [], threading.Event()
+    th = threading.Thread(target=_receive, args=(rx, pkts, N_TEL, stop))
+    th.start()
+    tel = VOSystem(p.replace(VideoNetEnabled=1, VideoNetHost="127.0.0.1",
+                             VideoNetPort=port, EncoderType=0),
+                   device="cuda")
+    twin = VOSystem(p, device="cuda")
+    send, send_ms = tel._send, []
+
+    def timed_send(out, frame):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        send(out, frame)
+        send_ms.append((time.perf_counter() - t0) * 1e3)
+
+    tel._send = timed_send
+    k1 = 0
+    tel_ms, twin_ms, want, klms = [], [], [], []
+    pos, poses, scales = [], [], []
+
+    def tel_frame(i):
+        nonlocal k1
+        zero_launches()
+        t0 = time.perf_counter()
+        out = tel.process_frame(gpu_frames[i], ts[i])
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        k1 += read_launches()["detect_candidates_cuda"]
+        return out, ms
+
+    def twin_frame(i):
+        t0 = time.perf_counter()
+        twin.process_frame(gpu_frames[i], ts[i])
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3
+
+    for i in range(N_TEL + 1):
+        if i % 2:
+            ms_b = twin_frame(i)
+            out, ms_a = tel_frame(i)
+        else:
+            out, ms_a = tel_frame(i)
+            ms_b = twin_frame(i)
+        if out is None:
+            continue
+        tel_ms.append(ms_a)
+        twin_ms.append(ms_b)
+        # the reference, outside the timed frame: this frame's edge map
+        # quantized on the host
+        scale = float(out.nav.scale)
+        want.append(native.dequantize_keylines(
+            native.quantize_keylines(tel.state.klm, scale)[0], scale))
+        klms.append(clone_tree(tel.state.klm))
+        pos.append(out.nav.Pos.cpu().numpy())
+        poses.append(out.nav.Pose.clone())
+        scales.append(scale)
+    stop.set()
+    th.join()
+    tel.sender.close()
+    rx.close()
+    equal = 0
+    for q in pkts:
+        k = q["frame_id"]
+        equal += int(k < len(want) and all(
+            np.array_equal(q["keylines"][f], v) for f, v in want[k].items())
+            and np.array_equal(q["Pos"], pos[k]))
+    oks["telemetry"] = (len(pkts) >= TEL_MIN_PACKETS and equal == len(pkts)
+                        and tel.telemetry_dropped == 0
+                        and k1 == N_TEL + 1)
+    diff = [a - b for a, b in zip(tel_ms[5:], twin_ms[5:])]
+    res["telemetry"] = {
+        "ok": oks["telemetry"], "frames": N_TEL + 1, "packets_sent": N_TEL,
+        "packets_received": len(pkts), "packets_min": TEL_MIN_PACKETS,
+        "packets_equal_host_quantized": equal,
+        "dropped_sends": tel.telemetry_dropped,
+        "receiver_rcvbuf_bytes": rx.port.rcvbuf,
+        "keylines_per_packet": [int(q["n"]) for q in pkts],
+        "packet_bytes_median": statistics.median(
+            [telemetry._HDR.size + int(q["n"]) * native.net_keyline_size()
+             + telemetry._VHDR.size + len(q["video"]) for q in pkts])
+        if pkts else None,
+        "k1_launches": k1, "k1_expected": N_TEL + 1,
+        "ms_per_frame_with_sender_median": statistics.median(tel_ms[5:]),
+        "ms_per_frame_without_sender_median": statistics.median(twin_ms[5:]),
+        "paired_diff_ms_median": statistics.median(diff),
+        "send_ms_median": statistics.median(send_ms[5:]),
+        "send_ms_max": max(send_ms[5:]),
+        "timing": "host clock, frames 6 on: process_frame with and "
+                  "without the sender (a twin VOSystem) in turns each "
+                  "frame, each + synchronize; send_ms: the sender's call "
+                  "alone (host copy, quantize, pack, UDP) after a "
+                  "synchronize"}
+
+    # (b) the depth filler, card against the CPU ---------------------------
+    H, W = p.ImageHeight, p.ImageWidth
+    fkw = dict(width=W, height=H, block=FILL_BLOCK, iters=FILL_ITERS)
+    worst = {"rho": 0.0, "s_rho": 0.0}
+    fixed_equal, fills = True, []
+    for klm in klms:
+        klm_cpu = map_tree(lambda t: t.cpu(), klm)
+        for mode in ("none", "corners", "full"):
+            fc = depth_filler.fill_depth(klm, bound_mode=mode, **fkw)
+            fh = depth_filler.fill_depth(klm_cpu, bound_mode=mode, **fkw)
+            fixed_equal &= bool(torch.equal(fc.fixed.cpu(), fh.fixed))
+            for f in worst:
+                a, b = getattr(fh, f), getattr(fc, f).cpu()
+                worst[f] = max(worst[f], float((a - b).abs().max() /
+                                               a.abs().max()))
+            if mode == "none":
+                fills.append(fc)
+    grid = tuple(fills[0].rho.shape)
+    fill_ms = time_cuda(lambda: depth_filler.fill_depth(klms[-1], **fkw),
+                        n=20)
+    _, acts = _device_timeline(_profiled(
+        lambda: depth_filler.fill_depth(klms[-1], **fkw)))
+    oks["depth_filler"] = (fixed_equal and grid == (60, 94)
+                           and max(worst.values()) <= FILL_REL)
+    res["depth_filler"] = {
+        "ok": oks["depth_filler"], "grid": list(grid), "block": FILL_BLOCK,
+        "iters": FILL_ITERS, "edge_maps": len(klms),
+        "bound_modes": ["none", "corners", "full"],
+        "fixed_equal": fixed_equal, "max_rel_err": worst,
+        "bar_rel": FILL_REL, "ms_per_call": fill_ms,
+        "launches_per_call": len(acts),
+        "timing": "CUDA events, median of 20 calls (default bound mode); "
+                  "launches: device activities of one profiled call"}
+
+    # (c) the surface grid, card against the CPU on the same points -------
+    # each fill's seeded cells nearer than 1 / SURFEL_RHO_MIN, unprojected,
+    # scaled by the frame's K and moved to the world by its nav pose (as
+    # io/edgemap_compress.EdgeMapAccumulator places segments); the rays go
+    # from the last frame's camera to the first frame's surfels
+    zfm = 0.5 * (p.ZfX + p.ZfY)
+    Pc = torch.stack([
+        (depth_filler.grid_points_3d(fc, zfm, p.PPx, p.PPy) * k) @ R.T +
+        torch.as_tensor(t, device="cuda")
+        for fc, R, t, k in zip(fills, poses, pos, scales)])
+    Vc = torch.stack([fc.fixed & (fc.rho > SURFEL_RHO_MIN) for fc in fills])
+    eye = torch.as_tensor(pos[-1], device="cuda")
+    target = Pc[0][Vc[0]]
+    lo, hi = surface.world_bounds(torch.cat([target, eye[None]]))
+    voxel = float((hi - lo).max()) / OC_CELLS
+    dims = dict(nx=OC_CELLS, ny=OC_CELLS, nz=OC_CELLS)
+    gc = surface.build_ocgrid(Pc, Vc, lo, voxel, **dims)
+    gh = surface.build_ocgrid(Pc.cpu(), Vc.cpu(), lo.cpu(), voxel, **dims)
+    counts_equal = bool(torch.equal(gc.count.cpu(), gh.count))
+    vc = surface.ray_cut_visibility(gc, eye, target)
+    vh = surface.ray_cut_visibility(gh, eye.cpu(), target.cpu())
+    mism = float((vc.cpu() != vh).float().mean())
+    oc_ms = time_cuda(lambda: surface.build_ocgrid(Pc, Vc, lo, voxel,
+                                                   **dims), n=20)
+    rc_ms = time_cuda(lambda: surface.ray_cut_visibility(gc, eye, target),
+                      n=20)
+    oks["surface"] = (counts_equal and mism <= VIS_MISMATCH
+                      and int(gc.count.sum()) > 0)
+    res["surface"] = {
+        "ok": oks["surface"], "points": int(Vc.numel()),
+        "valid_points": int(Vc.sum()), "cells": OC_CELLS ** 3,
+        "voxel": voxel, "counts_equal": counts_equal,
+        "count_sum": int(gc.count.sum()), "rays": int(target.shape[0]),
+        "visible_share": float(vc.float().mean()),
+        "visibility_mismatch_share": mism, "mismatch_bar": VIS_MISMATCH,
+        "build_ms": oc_ms, "raycut_ms": rc_ms,
+        "timing": "CUDA events, median of 20 calls"}
+
+    # (d) the visualizer over loopback -----------------------------------
+    vport = free_udp_port()
+    vdir = os.path.join(out_dir, "view")
+    shutil.rmtree(vdir, ignore_errors=True)
+    got = {}
+
+    def rx_loop():
+        got["n"] = visualizer.run("127.0.0.1", vport, vdir, max_packets=5,
+                                  timeout_ms=10000, zf=p.ZfX, cx=p.PPx,
+                                  dense_every=1, quiet=True, map_every=2,
+                                  device="cuda")
+
+    vth = threading.Thread(target=rx_loop)
+    vth.start()
+    tx = EdgeMapSender("127.0.0.1", vport, W, H, video_etype=0)
+    t0 = time.perf_counter()
+    sent = 0
+    while vth.is_alive() and time.perf_counter() - t0 < 60:
+        k = sent % len(klms)
+        tx.send(klms[k], 1.0, pos[k], np.eye(3, dtype=np.float32),
+                ts[k + 1], frame=gpu_frames[k + 1])
+        sent += 1
+        time.sleep(0.05)
+    vth.join(timeout=30)
+    tx.close()
+    files = sorted(os.listdir(vdir)) if os.path.isdir(vdir) else []
+    kinds = {k: sum(f.startswith(k + "_") for f in files)
+             for k in ("edges", "topdown", "depth", "map")}
+    oks["visualizer"] = (got.get("n") == 5 and kinds["edges"] == 5
+                         and kinds["topdown"] == 5 and kinds["depth"] == 5
+                         and kinds["map"] >= 1
+                         and "received_tray.txt" in files)
+    res["visualizer"] = {"ok": oks["visualizer"], "rendered": got.get("n"),
+                         "sent": sent, "pngs": kinds,
+                         "seconds": time.perf_counter() - t0}
+
+    # (e) run_vo --save-video raw ------------------------------------------
+    vid_dir = os.path.join(out_dir, "save_video")
+    zero_launches()
+    run_vo.main(["--render", str(N_VIDEO), "--max-frames", str(N_VIDEO),
+                 "--out-dir", vid_dir, "--save-video", "raw"])
+    vk1 = read_launches()["detect_candidates_cuda"]
+    vpk = list(read_video_stream(os.path.join(vid_dir, "video.rvv")))
+    vin = render_lateral(p, N_VIDEO)
+    pix_equal = len(vpk) == N_VIDEO and all(
+        data == _to_u8(f).tobytes() for (_, _, data), f in zip(vpk, vin))
+    oks["video"] = pix_equal and vk1 == N_VIDEO
+    res["video"] = {"ok": oks["video"], "packets": len(vpk),
+                    "pixels_equal": pix_equal, "k1_launches": vk1}
+
+    # (f) run_vo --interactive, 's' after frame 50 ---------------------------
+    idir = os.path.join(out_dir, "interactive")
+    shutil.rmtree(idir, ignore_errors=True)
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "rebvo_tpu_torch.apps.run_vo",
+         "--synthetic", "2000", "--interactive", "--out-dir", idir],
+        stdin=subprocess.PIPE, stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True, env=dict(
+            os.environ,
+            PYTHONPATH=os.path.dirname(os.path.abspath(__file__))))
+    timer = threading.Timer(300, proc.kill)
+    timer.start()
+    lines = []
+    try:
+        for line in proc.stdout:
+            lines.append(line.rstrip("\n"))
+            if line.startswith("frame 50"):
+                proc.stdin.write("s\n")
+                proc.stdin.flush()
+                break
+        rest, _ = proc.communicate()
+        lines += rest.splitlines()
+    finally:
+        timer.cancel()
+    n_int = [int(ln.split()[1]) for ln in lines
+             if ln.startswith("processed ")]
+    oks["interactive"] = (proc.returncode == 0 and bool(n_int)
+                          and 50 <= n_int[0] < 2000 and all(
+                              os.path.exists(os.path.join(idir, f))
+                              for f in ("kf_list.npz", "poses_list.npz")))
+    res["interactive"] = {"ok": oks["interactive"], "rc": proc.returncode,
+                          "frames": n_int[0] if n_int else None,
+                          "last_lines": lines[-3:],
+                          "seconds": time.perf_counter() - t0}
+
+    # (g) checkpoint and resume ------------------------------------------
+    fe = VOFrontend(p, device="cuda")
+    st = fe.bootstrap(fe.init(), gpu_frames[0], ts[0])
+    for i in range(1, N_CKPT):
+        st, _ = fe.step(st, gpu_frames[i], ts[i])
+    ckpt = os.path.join(out_dir, "ckpt.npz")
+    save_state(ckpt, st)
+    back = load_state(ckpt, fe.init())
+    restored_equal = all(bool(torch.equal(a, b)) for a, b in
+                         zip(tree_leaves(st), tree_leaves(back)))
+    runs = {}
+    for label, s in (("uninterrupted", st), ("resumed", back)):
+        outs = []
+        for i in range(N_CKPT, N_CKPT + N_RESUME):
+            s, o = fe.step(s, gpu_frames[i], ts[i])
+            outs.append(o)
+        runs[label] = (s, outs)
+    (sa, oa), (sb, ob) = runs["uninterrupted"], runs["resumed"]
+    pa = np.stack([o.nav.Pos.cpu().numpy() for o in oa])
+    pb = np.stack([o.nav.Pos.cpu().numpy() for o in ob])
+    kla = [int(o.nav.kl_num) for o in oa]
+    klb = [int(o.nav.kl_num) for o in ob]
+    tol = pos_tolerance(pa)
+    dpos = float(np.abs(pa - pb).max())
+    bit_equal = all(bool(torch.equal(a, b)) for a, b in
+                    zip(tree_leaves(sa), tree_leaves(sb)))
+    oks["checkpoint"] = restored_equal and kla == klb and dpos <= tol
+    res["checkpoint"] = {
+        "ok": oks["checkpoint"], "saved_after_frames": N_CKPT,
+        "resumed_steps": N_RESUME, "restored_leaves_equal": restored_equal,
+        "kl_equal": kla == klb, "max_abs_pos_diff": dpos, "tolerance": tol,
+        "bit_equal": bit_equal, "ckpt_bytes": os.path.getsize(ckpt)}
+
+    ok = all(oks.values())
+    emit({**res, "ok": ok, "oks": oks})
+    return k1, ok
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1747,6 +2113,12 @@ def main():
             "build", "smoke_parity", "loop", "repo_out", "kf_list.npz")):
         return 1
 
+    # ---- 15. telemetry, depth filler, surface, visualizer, video,
+    # interactive, checkpoints -------------------------------------------
+    m13_k1, ok15 = m13_phase(smi, p, gpu_frames, ts)
+    if not ok15:
+        return 1
+
     # ---- 9. kernel list -----------------------------------------------
     emit({"kernels": [{
         "name": "detect_candidates", "route": "cuda",
@@ -1771,7 +2143,8 @@ def main():
             **{k: v["detect_candidates_cuda"]
                for k, v in st_launches.items()},
             "vosystem": sys_launches["detect_candidates_cuda"],
-            "parity_row": parity_k1, "batched": batched_k1}}, {
+            "parity_row": parity_k1, "batched": batched_k1,
+            "m13_telemetry": m13_k1}}, {
         "name": "build_scale_space", "route": "cuda",
         "source": "rebvo_tpu_torch/csrc/build_scale_space.cu",
         "replaces": "rebvo_tpu/kernels/pallas_scale_space.py:276",

@@ -75,6 +75,16 @@ def _synth_local_frames(params, B, n, rank):
     return out
 
 
+# Iterations of both solves in _ba_check: the floor. A monocular BA
+# agrees with another order of its sums only up to its gauge (ROADMAP
+# queue 3, known divergences), so midway one solve can be a step behind
+# the other: on the card, where the block sums' atomics run in any order,
+# the two costs after 4 iterations parted by 2.2e-3 of the first cost in
+# one run and by 1.6e-7 in another. Both are compared where they
+# converge, as chip_smoke.py's in-process sharded check compares them.
+BA_ITERS = 8
+
+
 def _ba_check(dev, nprocs, rank, big):
     """The sharded BA across the group against `ba_solve` in this process:
     (parity error, the big problem's report or None)."""
@@ -92,7 +102,7 @@ def _ba_check(dev, nprocs, rank, big):
     R0 = torch.eye(3, device=dev).repeat(F, 1, 1)
     p0 = torch.as_tensor(p_true + rng.uniform(-0.05, 0.05, (F, 3)).astype(
         np.float32), device=dev)
-    _, _, _, costs_ref = bam.ba_solve(R0, p0, prob, 60.0, iters=4)
+    _, _, _, costs_ref = bam.ba_solve(R0, p0, prob, 60.0, iters=BA_ITERS)
 
     # this rank's landmark block of the partitioned problem, and the
     # observations of those landmarks
@@ -108,7 +118,7 @@ def _ba_check(dev, nprocs, rank, big):
         torch.cuda.synchronize()
     t0 = time.perf_counter()
     _, _, _, costs_sh = bam.ba_solve_sharded(R0g, p0g, local, 60.0,
-                                             n_shards=1, iters=4,
+                                             n_shards=1, iters=BA_ITERS,
                                              group=dist.group.WORLD)
     cs = pd.fetch_replicated(costs_sh)
     wall = time.perf_counter() - t0

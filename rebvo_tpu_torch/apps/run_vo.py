@@ -37,10 +37,14 @@ window or pair frame is read and no keyframe is captured, as in the JAX
 package. `--kf-every N` pushes the state's edge map and pose into a
 keyframe store on the device every N frames (no host read mid-run) and
 writes it at exit to `<out-dir>/kf_list.npz` or `--save-kf PATH`: the
-input of `run_ba`. The last line of standard output gives each kernel's
-launches in the run, as JSON after `kernel_launches=`. The other modes of
-the JAX package's run_vo are not ported yet; their flags fail with the
-ROADMAP item that will port them.
+input of `run_ba`. `--save-video raw|mjpeg` encodes every input frame
+(after undistortion) into `<out-dir>/video.rvv` (io/video; the
+reference's VideoSave path, rebvo_third_t.cpp:249-256; mjpeg needs PIL).
+`--interactive` runs the sequence through `VOSystem` under the
+reference rebvorun's stdin command loop (q/s/p/r/k/f/a,
+app/rebvorun/main.cpp:92-140), frames as the sequence gives them, as in
+the JAX package. The last line of standard output gives each kernel's
+launches in the run, as JSON after `kernel_launches=`.
 """
 
 from __future__ import annotations
@@ -51,10 +55,96 @@ import os
 import sys
 import time
 
-_NOT_PORTED = {
-    "save_video": "video saving (io/video): ROADMAP M13",
-    "interactive": "the interactive command loop: ROADMAP M13",
-}
+_HELP_KEYS = """Interactive commands (reference app/rebvorun/main.cpp:45-56):
+  q: quit                        s: save keyframes + pose log, then quit
+  p: snapshot current frame      r: reset depth/trajectory
+  k: toggle keyframe pushes      f: toggle frame-by-frame (and advance)
+  a: advance one frame (frame-by-frame mode)"""
+
+
+def interactive_loop(params, seq, out_dir: str, max_frames: int = 0,
+                     device="cuda"):
+    """The reference rebvorun's stdin command loop
+    (app/rebvorun/main.cpp:92-140) bound to the VOSystem API: stdin
+    commands are applied between frames. Returns the VOSystem."""
+    import queue
+    import threading
+
+    import numpy as np
+
+    from rebvo_tpu_torch.io.png import write_png
+    from rebvo_tpu_torch.system import VOSystem
+
+    sys_ = VOSystem(params, device=device)
+    cmds: "queue.Queue[str]" = queue.Queue()
+
+    def reader():
+        for line in iter(sys.stdin.readline, ""):
+            for ch in line.strip():
+                cmds.put(ch)
+
+    threading.Thread(target=reader, daemon=True).start()
+    print(_HELP_KEYS, flush=True)
+
+    frame_by_frame = False
+    kf_enabled = True
+    savekf = False
+    quit_ = False
+    n_done = 0
+    for item in seq:
+        # frame-by-frame gate (rebvo_first_t.cpp:154-159): block until a
+        # command arrives; 'a'/'f' advance
+        while True:
+            try:
+                c = cmds.get(block=frame_by_frame, timeout=0.2)
+            except queue.Empty:
+                break
+            if c == "q":
+                quit_ = True
+            elif c == "s":
+                savekf = True
+                quit_ = True
+            elif c == "p":
+                g = np.clip(np.asarray(item[1]) / 3.0, 0, 255).astype(
+                    np.uint8)
+                snap = os.path.join(out_dir, f"snapshot_{n_done:06d}.png")
+                write_png(snap, g)
+                print(f"snapshot -> {snap}", flush=True)
+            elif c == "r":
+                sys_.Reset()
+                print("reset requested", flush=True)
+            elif c == "k":
+                kf_enabled = not kf_enabled
+                print(f"keyframe pushes {'on' if kf_enabled else 'off'}",
+                      flush=True)
+            elif c == "f":
+                frame_by_frame = not frame_by_frame
+                break
+            elif c == "a":
+                break
+            else:
+                print(_HELP_KEYS, flush=True)
+            if quit_ or not frame_by_frame:
+                break
+        if quit_:
+            break
+        t, frame, win = item[:3]
+        pair = item[3] if len(item) == 4 else None
+        sys_.kf_push_enabled = kf_enabled
+        sys_.process_frame(frame, t, win, frame_pair=pair)
+        n_done += 1
+        if n_done % 50 == 0:
+            print(f"frame {n_done}", flush=True)
+        if max_frames and n_done >= max_frames:
+            break
+    if savekf:
+        kf_path = os.path.join(out_dir, "kf_list.npz")
+        poses_path = os.path.join(out_dir, "poses_list.npz")
+        sys_.TakeSnapshot(kf_path, poses_path)
+        print(f"saved KF -> {kf_path}; PG -> {poses_path}", flush=True)
+    sys_.save_outputs(out_dir)
+    print(f"processed {n_done} frames (interactive)", flush=True)
+    return sys_
 
 
 def main(argv=None):
@@ -84,14 +174,15 @@ def main(argv=None):
     ap.add_argument("--save-kf", default=None,
                     help="keyframe store output path "
                          "(default <out-dir>/kf_list.npz)")
-    ap.add_argument("--save-video")
-    ap.add_argument("--interactive", action="store_true")
+    ap.add_argument("--save-video", choices=["raw", "mjpeg"],
+                    help="buffer the encoded input stream to "
+                         "<out-dir>/video.rvv (the reference's VideoSave "
+                         "path, rebvo_third_t.cpp:249-256)")
+    ap.add_argument("--interactive", action="store_true",
+                    help="reference rebvorun stdin command loop "
+                         "(q/s/p/r/k/f/a, app/rebvorun/main.cpp:92-140) "
+                         "driving the VOSystem API")
     args = ap.parse_args(argv)
-
-    for flag, item in _NOT_PORTED.items():
-        if getattr(args, flag):
-            ap.error(f"--{flag.replace('_', '-')} is not ported to "
-                     f"rebvo_tpu_torch yet: {item}")
 
     import numpy as np
     import torch
@@ -148,6 +239,13 @@ def main(argv=None):
     params = params.replace(NavLogCap=max(params.NavLogCap, n_total + 8))
     os.makedirs(args.out_dir, exist_ok=True)
 
+    launches0 = {fn.__name__: fn.launches for fn in WRAPPERS}
+    if args.interactive:
+        interactive_loop(params, seq, args.out_dir,
+                         max_frames=args.max_frames, device=device)
+        print_launches(launches0)
+        return None
+
     fe = VOFrontend(params, device=device)
     umap = (build_undistort_map(fe.cam, device=device)
             if params.useUndistort else None)
@@ -175,8 +273,17 @@ def main(argv=None):
         print("run_vo: --chunk is used only in mono vision-only runs "
               "without --kf-every", file=sys.stderr)
     chunk = [] if args.chunk > 1 and mono and kf_store is None else None
+    venc = vout = None
+    if args.save_video:
+        from rebvo_tpu_torch.io.video import (VIDEO_ENCODER_TYPE_MJPEG,
+                                              VIDEO_ENCODER_TYPE_RAW,
+                                              VideoStreamWriter, make_encoder)
+        etype = (VIDEO_ENCODER_TYPE_MJPEG if args.save_video == "mjpeg"
+                 else VIDEO_ENCODER_TYPE_RAW)
+        venc = make_encoder(etype, params.ImageWidth, params.ImageHeight)
+        vout = VideoStreamWriter(os.path.join(args.out_dir, "video.rvv"),
+                                 params.ImageWidth, params.ImageHeight)
 
-    launches0 = {fn.__name__: fn.launches for fn in WRAPPERS}
     state = fe.init()
     n_done = 0
     t_start = time.perf_counter()
@@ -210,6 +317,9 @@ def main(argv=None):
                 n_done % args.kf_every == 0:
             push_keyframe(kf_store, state.klm, state.t, state.K_scale,
                           state.Pose, state.Pos, state.Vel)
+        if venc is not None:
+            venc.push_frame(frame)
+            vout.write(t, venc.pop_frame(), venc.encoder_type)
         n_done += 1
         if n_done % 50 == 0:
             print(f"frame {n_done}", flush=True)
@@ -221,6 +331,8 @@ def main(argv=None):
     if device == "cuda":
         torch.cuda.synchronize()
     wall = time.perf_counter() - t_start
+    if vout is not None:
+        vout.close()
     if kf_store is not None:
         kf_path = args.save_kf or os.path.join(args.out_dir, "kf_list.npz")
         save_keyframes(kf_path, kf_store)
@@ -238,10 +350,16 @@ def main(argv=None):
     print(f"processed {n_done} frames in {wall:.1f}s on {device} "
           f"({n_done / wall:.1f} fps); kl={r.get('kl_num')} "
           f"match={r.get('klm_num')}; trajectory -> {tray}")
+    print_launches(launches0)
+    return logger
+
+
+def print_launches(launches0) -> None:
+    """The last line: each kernel's launches since `launches0`."""
+    from rebvo_tpu_torch.kernels.cuda_scale_space import WRAPPERS
     print("kernel_launches=" + json.dumps(
         {fn.__name__: fn.launches - launches0[fn.__name__]
          for fn in WRAPPERS}), flush=True)
-    return logger
 
 
 if __name__ == "__main__":

@@ -11,6 +11,7 @@ from __future__ import annotations
 
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 Tensor = torch.Tensor
@@ -91,6 +92,41 @@ class KeylineMap(NamedTuple):
             anchored=b(),
             rho_st=f(0.0), ax=f(0.0), ay=f(0.0), arho=f(0.0),
         )
+
+
+def keylines_to_host(klm: KeylineMap, fields, extra=()) -> dict:
+    """The named fields of a KeylineMap as numpy arrays, and any `extra`
+    values flattened into one float32 array under "extra". Tensors move to
+    the host in one transfer: every field rides in one float32 buffer, the
+    integer ones bit for bit in a float32 view, the booleans as 0/1. numpy
+    fields are copied."""
+    if not isinstance(klm.valid, Tensor):
+        out = {f: np.array(getattr(klm, f)) for f in fields}
+        out["extra"] = np.concatenate(
+            [np.asarray(e, np.float32).reshape(-1) for e in extra]) \
+            if extra else np.zeros(0, np.float32)
+        return out
+    parts = [getattr(klm, f) for f in fields]
+    K = klm.valid.shape[-1]
+    dev = klm.valid.device
+
+    def as_f32(t):
+        if t.dtype == torch.bool:
+            return t.to(torch.float32)
+        if t.is_floating_point():
+            return t.to(torch.float32)
+        return t.to(torch.int32).view(torch.float32)
+
+    host = torch.cat([as_f32(t).reshape(-1) for t in parts] + [
+        torch.as_tensor(e, dtype=torch.float32, device=dev).reshape(-1)
+        for e in extra]).cpu().numpy()
+    out = {}
+    for i, (f, t) in enumerate(zip(fields, parts)):
+        a = host[i * K:(i + 1) * K]
+        out[f] = (a != 0 if t.dtype == torch.bool else
+                  a if t.is_floating_point() else a.view(np.int32))
+    out["extra"] = host[len(parts) * K:]
+    return out
 
 
 def select_map(cond: Tensor, a: KeylineMap, b: KeylineMap) -> KeylineMap:

@@ -15,8 +15,14 @@ the pose-graph log. Each frame reads its keyframe decision and the
 measurement the pose log keeps on the host, in one transfer: that read
 is the API's contract (getNav, the pose log), as in the JAX package. The
 step itself is `step_donated` / `step_imu_donated`: the system holds the
-only reference to its state. The telemetry sender (`VideoNetEnabled`) is
-not ported (ROADMAP M13) and raises.
+only reference to its state.
+
+With `VideoNetEnabled=1` every frame's edge map and nav state go to
+VideoNetHost:VideoNetPort through `io/telemetry.EdgeMapSender` (with the
+encoded frame, `EncoderType`, and the `EdgeMapDelay` ring), in one more
+host transfer a frame. The channel is lossy as in the JAX package: a send
+the socket refuses (-1) or an OSError of the transport is counted in
+`telemetry_dropped` and odometry goes on; any other error raises.
 """
 
 from __future__ import annotations
@@ -62,8 +68,6 @@ class VOSystem:
         if params is None:
             params = (load_config(config_path) if config_path
                       else REBVOParameters())
-        if params.VideoNetEnabled:
-            raise NotImplementedError("telemetry: ROADMAP M13")
         self.params = params
         self.device = torch.device(device)
         self.frontend = VOFrontend(params, device=self.device)
@@ -87,6 +91,18 @@ class VOSystem:
             self.kf_store = KeyframeStore.empty(KF_SLOTS, params.KeylineMax,
                                                 device=self.device)
             self.pose_log = PoseGraphLog()
+
+        # telemetry sender (VideoNetEnabled): edge map + encoded frame
+        # (EncoderType selects raw/MJPEG, rebvo_third_t.cpp:117-143)
+        self.sender = None
+        self.telemetry_dropped = 0
+        if params.VideoNetEnabled:
+            from rebvo_tpu_torch.io.telemetry import EdgeMapSender
+            self.sender = EdgeMapSender(
+                params.VideoNetHost, params.VideoNetPort,
+                params.ImageWidth, params.ImageHeight,
+                video_etype=params.EncoderType,
+                edgemap_delay=params.EdgeMapDelay)
 
         # IMU sample buffer for pushIMU (the ImuGrabber role)
         self._imu_samples = []
@@ -202,8 +218,23 @@ class VOSystem:
 
         if self.kf_store is not None:
             self._keyframe_and_log(out)
+        if self.sender is not None:
+            self._send(out, frame)
         self._last_tp2 = time.perf_counter() - tw2
         return out
+
+    def _send(self, out, frame) -> None:
+        """This frame's edge map and nav state to the telemetry channel
+        (rebvo_third_t.cpp:192-236); lossy, so a refused send is counted,
+        not raised."""
+        nav = out.nav
+        try:
+            n = self.sender.send(self.state.klm, nav.scale, nav.Pos,
+                                 nav.Pose, nav.t, frame=frame)
+        except OSError:
+            n = -1
+        if n < 0:
+            self.telemetry_dropped += 1
 
     def _keyframe_and_log(self, out) -> None:
         """Mirror a saved keyframe into the store (the step's online

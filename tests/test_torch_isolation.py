@@ -84,6 +84,41 @@ _, _, _, costs = ba.ba_solve_sharded(torch.as_tensor(R),
                                      torch.as_tensor(p_true) + 0.01, part,
                                      200.0, n_shards=2, iters=2)
 assert costs.shape == (2,) and bool(costs.isfinite().all())
+# the last modules: telemetry, video, recorder, the visualizer, the depth
+# filler and surface grid, the ROS builders, checkpoints
+import socket, tempfile
+import rebvo_tpu_torch.io.recorder, rebvo_tpu_torch.core.linefitting
+from rebvo_tpu_torch import runtime_utils
+from rebvo_tpu_torch.apps import ros_bridge, visualizer
+from rebvo_tpu_torch.backend import surface
+from rebvo_tpu_torch.io import edgemap_compress, native, telemetry, video
+from rebvo_tpu_torch.kernels import depth_filler
+fill = depth_filler.fill_depth(sys_.state.klm, width=96, height=64, block=8,
+                               iters=4, bound_mode="full")
+P = depth_filler.grid_points_3d(fill, 48.0, 48.0, 32.0)
+lo, _ = surface.world_bounds(P)
+grid = surface.build_ocgrid(P, torch.ones_like(fill.fixed), lo, 0.5, nx=8,
+                            ny=8, nz=8)
+vis = surface.ray_cut_visibility(grid, torch.zeros(3), P)
+assert vis.shape == fill.rho.shape and int(grid.count.sum()) > 0
+assert len(edgemap_compress.compress_edgemap(sys_.state.klm, 1.0)) > 16
+assert ros_bridge.build_edgemap_dict(sys_.state.klm, 1.0)["KlGrad"].ndim == 2
+with socket.socket(socket.AF_INET, socket.SOCK_DGRAM) as s_:
+    s_.bind(("127.0.0.1", 0))
+    udp = s_.getsockname()[1]
+rx = telemetry.EdgeMapReceiver("127.0.0.1", udp)
+tel = VOSystem(p.replace(ImuMode=0, VideoNetEnabled=1, VideoNetPort=udp),
+               device="cpu")
+for i in range(2):
+    tel.process_frame(fr[i], 0.05 * i)
+pkt = rx.recv(timeout_ms=3000)
+rx.close()
+assert pkt is not None and pkt["n"] > 0 and pkt["video"] is not None
+assert visualizer.render_dense_depth(pkt, device="cpu").ndim == 3
+with tempfile.TemporaryDirectory() as d:
+    runtime_utils.save_state(d + "/c.npz", tel.state)
+    back = runtime_utils.load_state(d + "/c.npz", tel.frontend.init())
+assert torch.equal(back.Pos, tel.state.Pos)
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith(("jax.", "jaxlib"))
              or m == "rebvo_tpu" or m.startswith("rebvo_tpu."))

@@ -238,8 +238,9 @@ def test_vosystem_push_imu_window():
 
 def test_vosystem_stereo_and_telemetry():
     """VOSystem.process_frame takes the stereo pair (test_stereo_step's
-    VOSystem test on the port); a telemetry request raises (ROADMAP
-    M13) rather than being dropped."""
+    VOSystem test on the port); with VideoNetEnabled=1 the system sends
+    each frame's edge map (the pair's system too) to a receiver on a free
+    loopback port."""
     from tests.render import render_plane_seq
     from tests.test_stereo_step import BASELINE, TILT, stereo_params
     from tests.test_stereo_step import SMALL as ST_SMALL
@@ -255,8 +256,23 @@ def test_vosystem_stereo_and_telemetry():
         out = sys_.process_frame(f0[i], i / 20.0, frame_pair=f1[i])
     assert int(out.stereo_num) > 500 and bool(out.nav.estimation_ok)
     assert len(sys_.pose_log.meas) == 3
-    with pytest.raises(NotImplementedError, match="M13"):
-        TSystem(p.replace(VideoNetEnabled=1), device="cpu")
+    import socket
+
+    from rebvo_tpu_torch.io.telemetry import EdgeMapReceiver
+    with socket.socket(socket.AF_INET, socket.SOCK_DGRAM) as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    rx = EdgeMapReceiver("127.0.0.1", port)
+    tel = TSystem(p.replace(VideoNetEnabled=1, VideoNetPort=port),
+                  device="cpu")
+    for i in range(2):
+        tel.process_frame(f0[i], i / 20.0, frame_pair=f1[i])
+    pkt = rx.recv(timeout_ms=3000)
+    rx.close()
+    tel.sender.close()
+    assert pkt is not None and pkt["frame_id"] == 0
+    assert pkt["n"] == int(tel.state.klm.valid.sum())
+    assert tel.telemetry_dropped == 0
 
 
 def test_write_euroc_vi_cam1_stream(tmp_path):
