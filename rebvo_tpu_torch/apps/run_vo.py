@@ -43,8 +43,12 @@ reference's VideoSave path, rebvo_third_t.cpp:249-256; mjpeg needs PIL).
 `--interactive` runs the sequence through `VOSystem` under the
 reference rebvorun's stdin command loop (q/s/p/r/k/f/a,
 app/rebvorun/main.cpp:92-140), frames as the sequence gives them, as in
-the JAX package. The last line of standard output gives each kernel's
-launches in the run, as JSON after `kernel_launches=`.
+the JAX package. `--trace-out PATH` writes the run's host spans, the
+device time of each step's stages and the counters
+(`rebvo_tpu_torch.obs`) as Chrome-trace JSON on torch.profiler's epoch,
+to open in Perfetto: where each frame's host and device time went. The
+last line of standard output gives each kernel's launches in the run,
+as JSON after `kernel_launches=`.
 """
 
 from __future__ import annotations
@@ -182,6 +186,10 @@ def main(argv=None):
                     help="reference rebvorun stdin command loop "
                          "(q/s/p/r/k/f/a, app/rebvorun/main.cpp:92-140) "
                          "driving the VOSystem API")
+    ap.add_argument("--trace-out", default=None,
+                    help="write the run's spans, stage device times and "
+                         "counters (rebvo_tpu_torch.obs) as Chrome-trace "
+                         "JSON to this path")
     args = ap.parse_args(argv)
 
     import numpy as np
@@ -243,6 +251,7 @@ def main(argv=None):
     if args.interactive:
         interactive_loop(params, seq, args.out_dir,
                          max_frames=args.max_frames, device=device)
+        write_trace(args.trace_out)
         print_launches(launches0)
         return None
 
@@ -350,8 +359,19 @@ def main(argv=None):
     print(f"processed {n_done} frames in {wall:.1f}s on {device} "
           f"({n_done / wall:.1f} fps); kl={r.get('kl_num')} "
           f"match={r.get('klm_num')}; trajectory -> {tray}")
+    write_trace(args.trace_out)
     print_launches(launches0)
     return logger
+
+
+def write_trace(path) -> None:
+    """`--trace-out`: the ring of rebvo_tpu_torch.obs as Chrome-trace
+    JSON."""
+    if path:
+        from rebvo_tpu_torch import obs
+        obs.dump(path)
+        print(f"trace ({len(obs.units())} units, counters "
+              f"{json.dumps(obs.counters())}) -> {path}", flush=True)
 
 
 def print_launches(launches0) -> None:

@@ -27,14 +27,22 @@ step (the scatters are out of place), and on the CPU every product goes
 through core/numerics.matmul, so a vmapped lane equals the lane alone
 bit for bit there.
 
-Each stage of `step` runs under a `record_function` span (`vo.front`,
-`vo.detect` inside it, `vo.pose`, `vo.match_depth`, `vo.keyframe`), so
-a `torch.profiler` trace splits the step's host and device time by
-stage; the rest of the step (pose composition, nav row) is outside any
-span. `step_imu` adds `vo.imu` (IMU integration, gyro-bias init and the
-map's pre-rotation) and `vo.imu_filter` (ext_rot_vel, bias_correct and
-the scale/gravity filter); its `vo.pose` holds minimizer_v and the
-forward match.
+Each stage of `step` runs under a span of `rebvo_tpu_torch.obs`
+(`vo.front`, `vo.detect` inside it, `vo.pose`, `vo.match_depth`,
+`vo.keyframe`): a `torch.profiler` `record_function` of that name and a
+record of its host time in the ring of `obs`; the rest of the step (pose
+composition, nav row) is outside any span. `step_imu` adds `vo.imu` (IMU
+integration, gyro-bias init and the map's pre-rotation) and
+`vo.imu_filter` (ext_rot_vel, bias_correct and the scale/gravity
+filter); its `vo.pose` holds minimizer_v and the forward match. The
+spans run where the host runs the step's Python: eagerly, or once at a
+graph's capture. The device time of each stage comes from an
+`obs.Timeline`: a CUDA event at the step's start, at each stage's end
+and at the step's end (the rest between stages is `vo.rest`), which a
+CUDA graph holds as event-record nodes, so every replay of `step_scan`
+or of a vmapped step times its stages again, frame by frame; they are
+read at the next entry call, without a sync. Every entry call is one
+`obs.unit`, numbered by the frontend's host-side `frame_id`.
 
 The JAX package has no visual-inertial `step_scan`, and its run_vo
 refuses `--chunk` in IMU mode, so no CUDA graph of `step_imu` exists.
@@ -58,8 +66,7 @@ from typing import Dict, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
-from torch.profiler import record_function
-
+from rebvo_tpu_torch import obs
 from rebvo_tpu_torch.config import REBVOParameters
 from rebvo_tpu_torch.core.geometry import (CameraModel, rotate_gradients,
                                            rotate_hom_points, so3_exp,
@@ -323,50 +330,74 @@ def init_state(params: REBVOParameters, dtype=torch.float32,
     )
 
 
-def capture_graph(fn, args, pool, warmup):
+class Captured(NamedTuple):
+    """A CUDA graph of `capture_graph`."""
+
+    graph: "torch.cuda.CUDAGraph"
+    outs: object           # the graph's outputs, rewritten by each replay
+    launches: tuple        # (kernel wrapper, its launches per replay)
+    stages: tuple          # obs.Timeline of each step captured, in order
+
+
+def capture_graph(fn, args, pool, warmup) -> Captured:
     """`fn(*args)` captured as one CUDA graph in memory pool `pool`,
     PyTorch's recipe: `warmup()` first runs on a side stream (it creates
     the cuBLAS and cuSOLVER handles and loads the kernels; it must leave
-    `args` as they were), then the capture. Returns (graph, outputs,
-    launches): the outputs are the graph's own tensors, rewritten by each
-    replay; launches recorded by the capture are taken off the kernel
-    wrappers' counts and listed as (wrapper, launches per replay) for
-    `replay_graph` to add back. Used by `VOFrontend.step_scan` and
-    `parallel.mesh.shard_sequences`."""
+    `args` as they were; its steps record no stage events), then the
+    capture, under the span `graph.capture` (counted in
+    `graph.captures`). The outputs are the graph's own tensors, rewritten
+    by each replay; launches recorded by the capture are taken off the
+    kernel wrappers' counts and listed as (wrapper, launches per replay)
+    for `replay_graph` to add back; each captured step's stage events are
+    nodes of the graph (`obs.Timeline`). Used by `VOFrontend.step_scan`
+    and `parallel.mesh.shard_sequences`."""
     from rebvo_tpu_torch.kernels.cuda_scale_space import WRAPPERS
-    dev = torch.cuda.current_device()
-    main = torch.cuda.current_stream(dev)
-    side = torch.cuda.Stream(device=dev)
-    side.wait_stream(main)
-    with torch.cuda.stream(side):
-        warmup()
-    main.wait_stream(side)
-    before = [w.launches for w in WRAPPERS]
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph, pool=pool):
-        outs = fn(*args)
-    launches = []
-    for w, n0 in zip(WRAPPERS, before):
-        launches.append((w, w.launches - n0))
-        w.launches = n0
-    return graph, outs, tuple(launches)
+    with obs.span("graph.capture"):
+        dev = torch.cuda.current_device()
+        main = torch.cuda.current_stream(dev)
+        side = torch.cuda.Stream(device=dev)
+        side.wait_stream(main)
+        with torch.cuda.stream(side), obs.quiet():
+            warmup()
+        main.wait_stream(side)
+        before = [w.launches for w in WRAPPERS]
+        graph = torch.cuda.CUDAGraph()
+        with obs.capture() as stages, torch.cuda.graph(graph, pool=pool):
+            outs = fn(*args)
+        launches = []
+        for w, n0 in zip(WRAPPERS, before):
+            launches.append((w, w.launches - n0))
+            w.launches = n0
+    obs.count("graph.captures")
+    return Captured(graph, outs, tuple(launches), tuple(stages))
 
 
-def replay_graph(graph, launches) -> None:
-    """Replay a graph of `capture_graph`, counting its kernel launches."""
-    graph.replay()
-    for w, n in launches:
-        w.launches += n
+def replay_graph(g: Captured, copy_in):
+    """One call of a graph of `capture_graph`, inside the caller's
+    `obs.unit`, in three spans: `copy_in()` (the inputs copied into the
+    graph's static buffers) under `graph.copy_in`, the replay under
+    `graph.replay` (counted in `graph.replays`, with the graph's kernel
+    launches), and clones of the outputs, returned, under
+    `graph.clone_out`. The captured steps' stage times are read when the
+    next unit opens (`obs.replayed`)."""
+    with obs.span("graph.copy_in"):
+        copy_in()
+    with obs.span("graph.replay"):
+        g.graph.replay()
+        for w, n in g.launches:
+            w.launches += n
+        obs.count("graph.replays")
+    obs.replayed(g.stages)
+    with obs.span("graph.clone_out"):
+        return tree_map(torch.clone, g.outs)
 
 
 class _ScanGraph(NamedTuple):
     """One chunk of N steps captured as a CUDA graph (VOFrontend.step_scan)."""
 
-    graph: "torch.cuda.CUDAGraph"
+    cap: Captured          # its outputs: the N outputs, stacked
     frames: Tensor         # [N, H, W] static input frames
     ts: Tensor             # [N] static timestamps
-    outs: FrameOutput      # the N outputs, stacked; rewritten by each replay
-    launches: tuple        # (kernel wrapper, its launches per replay)
 
 
 class VOFrontend:
@@ -408,6 +439,8 @@ class VOFrontend:
         self._scan_graphs: Dict[tuple, _ScanGraph] = {}
         self._scan_state: Optional[VOState] = None
         self._scan_pool = None
+        # frame ids of the units this frontend opens (rebvo_tpu_torch.obs)
+        self.frame_id = 0
 
     def init(self) -> VOState:
         return init_state(self.params, device=self.device)
@@ -476,6 +509,10 @@ class VOFrontend:
         first-frame consume, rebvo_second_t.cpp:108-122); a stereo pair
         frame advances the pair detector's threshold loop."""
         self._check_pair(frame_pair)
+        with obs.unit(self):
+            return self._bootstrap(state, frame, t, frame_pair)
+
+    def _bootstrap(self, state: VOState, frame, t, frame_pair) -> VOState:
         frame = self._frame(frame)
         klm, mask_img, kl_num, thresh, retuned = self._detect(state, frame)
         field_img = build_field(
@@ -499,7 +536,7 @@ class VOFrontend:
         """Detection + quantile + match field."""
         p = self.params
         cam = self.cam
-        with record_function("vo.detect"):
+        with obs.span("vo.detect"):
             new_klm, new_mask, kl_num, thresh, retuned = self._detect(state,
                                                                       frame)
         s_rho_q = estimate_quantile(
@@ -543,7 +580,7 @@ class VOFrontend:
         bundle for `_tail` and the pair detector's threshold carry."""
         if frame_pair is None:
             return None, state.thresh_pair, state.last_kl_num_pair
-        with record_function("vo.stereo"), record_function("vo.detect"):
+        with obs.span("vo.stereo"), obs.span("vo.detect"):
             klm1, mask1, kl_num_p, thresh_p, _ = self._detect_pair(
                 state, self._frame(frame_pair))
         return (klm1, mask1), thresh_p, kl_num_p
@@ -582,7 +619,7 @@ class VOFrontend:
         est_ok = (~nan_fail) & (~match_fail)
 
         if rescale_on:
-            with record_function("vo.stereo"):
+            with obs.span("vo.stereo"):
                 s_meas, n_sc = velocity_scale_refine(
                     dres.new, state.klm, V, cam.zfm,
                     k_px=float(p.LocationUncertaintyMatch) / 2.0)
@@ -647,7 +684,7 @@ class VOFrontend:
                          loc_uncertainty=p.LocationUncertainty)
 
         if stereo is not None:
-            with record_function("vo.stereo"):
+            with obs.span("vo.stereo"):
                 proc, stereo_num, gauge_div = self._stereo_depth(
                     state, proc, stereo, est_ok, at_epoch)
             Kp_new = one
@@ -747,7 +784,8 @@ class VOFrontend:
         """One frame (`frame_pair`: the cam1 frame, stereo only). Pure:
         the input state is left as it was."""
         self._check_pair(frame_pair)
-        return self._step(state, frame, t, frame_pair, donate=False)
+        with obs.unit(self):
+            return self._step(state, frame, t, frame_pair, donate=False)
 
     def step_donated(self, state: VOState, frame, t,
                      frame_pair=None) -> Tuple[VOState, FrameOutput]:
@@ -755,7 +793,8 @@ class VOFrontend:
         nav-log row in place), the counterpart of the JAX package's
         donated step: the caller must not touch the old state."""
         self._check_pair(frame_pair)
-        return self._step(state, frame, t, frame_pair, donate=True)
+        with obs.unit(self):
+            return self._step(state, frame, t, frame_pair, donate=True)
 
     def _step(self, state: VOState, frame, t, frame_pair,
               donate: bool) -> Tuple[VOState, FrameOutput]:
@@ -763,6 +802,7 @@ class VOFrontend:
         cam = self.cam
         dt_f = state.Vel.dtype
         dev = state.Vel.device
+        tl = obs.Timeline(dev)
         frame = self._frame(frame)
         t = self._time(t, state.t)
         dt_frame = t - state.t
@@ -770,14 +810,17 @@ class VOFrontend:
                                torch.full_like(dt_frame, 1.0 / p.config_fps),
                                dt_frame)
 
-        with record_function("vo.front"):
+        with obs.span("vo.front"):
             (new_klm, new_mask, kl_num, thresh, retuned, s_rho_q, fv,
              field_img) = self._front(state, frame)
+        tl.mark("vo.front")
         stereo, thresh_pair, kl_num_pair = self._stereo_front(state,
                                                               frame_pair)
+        if stereo is not None:
+            tl.mark("vo.stereo")
         old = state.klm
 
-        with record_function("vo.pose"):
+        with obs.span("vo.pose"):
             match_num_min = torch.clamp(state.frame_count,
                                         max=p.MatchNumThresh)
             mres = minimizer_rv(
@@ -797,8 +840,9 @@ class VOFrontend:
             P_V = torch.where(nan_fail,
                               torch.eye(3, dtype=dt_f, device=dev) * BIG,
                               mres.RVel)
+        tl.mark("vo.pose")
 
-        with record_function("vo.match_depth"):
+        with obs.span("vo.match_depth"):
             new_fm, _ = forward_match(old, new_klm, mres.m_id_f)
             R0 = so3_exp(W)
             R = R0.T
@@ -807,6 +851,7 @@ class VOFrontend:
              stereo_num, gauge_div, C_vel, aR_new, aV_new,
              aAge_new) = self._tail(state2, new_fm, V, P_V, R, nan_fail,
                                     stereo)
+        tl.mark("vo.match_depth")
 
         K_scale = state.K_scale
         Pose = matmul(state.Pose, R)
@@ -817,12 +862,14 @@ class VOFrontend:
         else:
             G_gauge = state.G_gauge
         Pos = state.Pos - matmul(Pose, V_out * K_scale * G_gauge)
+        tl.mark()
 
-        with record_function("vo.keyframe"):
+        with obs.span("vo.keyframe"):
             (kf_carry, new_final, Pose, Pos, kf_id, kf_back_m,
              kf_saved) = self._kf_track(state, new_final, fv, Pose, Pos,
                                         K_scale, kl_num, s_rho_q, est_ok,
                                         G_gauge)
+        tl.mark("vo.keyframe")
 
         nav = NavData(
             t=t, dt=dt_frame, Rot=R, RotLie=so3_log(R),
@@ -850,6 +897,7 @@ class VOFrontend:
             imu=state.imu, kf=kf_carry, navlog=navlog, navlog_n=navlog_n,
             G_gauge=G_gauge, VScaleC=C_vel, aR=aR_new, aV=aV_new,
             aAge=aAge_new)
+        tl.close()
         return new_state, out
 
     # ------------------------------------------------------------------
@@ -865,8 +913,9 @@ class VOFrontend:
         state is left as it was. `frame_pair`: the cam1 frame, stereo
         only."""
         self._check_pair(frame_pair)
-        return self._step_imu(state, frame, t, win, R_cam2imu, T_cam2imu,
-                              frame_pair, donate=False)
+        with obs.unit(self):
+            return self._step_imu(state, frame, t, win, R_cam2imu,
+                                  T_cam2imu, frame_pair, donate=False)
 
     def step_imu_donated(self, state: VOState, frame, t, win: ImuWindow,
                          R_cam2imu: Tensor = None, T_cam2imu: Tensor = None,
@@ -875,8 +924,9 @@ class VOFrontend:
         ring in place (the JAX package's donated step_imu): the caller
         must not touch the old state."""
         self._check_pair(frame_pair)
-        return self._step_imu(state, frame, t, win, R_cam2imu, T_cam2imu,
-                              frame_pair, donate=True)
+        with obs.unit(self):
+            return self._step_imu(state, frame, t, win, R_cam2imu,
+                                  T_cam2imu, frame_pair, donate=True)
 
     def _step_imu(self, state: VOState, frame, t, win: ImuWindow, R_cam2imu,
                   T_cam2imu, frame_pair,
@@ -886,6 +936,7 @@ class VOFrontend:
         dt_f = state.Vel.dtype
         dev = state.Vel.device
         kw = dict(dtype=dt_f, device=dev)
+        tl = obs.Timeline(dev)
         frame = self._frame(frame)
         win = self._window(win)
         t = self._time(t, state.t)
@@ -901,7 +952,7 @@ class VOFrontend:
             torch.as_tensor(T_cam2imu).to(**kw)
         ic = state.imu
 
-        with record_function("vo.imu"):
+        with obs.span("vo.imu"):
             imu = integrate_window(win, R_cam2imu, T_cam2imu)
 
             # --- Gyro-bias initialisation (rebvo_second_t.cpp:163-185).
@@ -932,14 +983,18 @@ class VOFrontend:
             # R^T = SO3(Bg) @ Rot^T  ->  R = Rot @ SO3(Bg)^T.
             R = imu.Rot @ so3_exp(Bg).T
             old_pre = self._rotate_map(state.klm, R.T)
+        tl.mark("vo.imu")
 
-        with record_function("vo.front"):
+        with obs.span("vo.front"):
             (new_klm, new_mask, kl_num, thresh, retuned, s_rho_q, fv,
              field_img) = self._front(state._replace(klm=old_pre), frame)
+        tl.mark("vo.front")
         stereo, thresh_pair, kl_num_pair = self._stereo_front(state,
                                                               frame_pair)
+        if stereo is not None:
+            tl.mark("vo.stereo")
 
-        with record_function("vo.pose"):
+        with obs.span("vo.pose"):
             match_num_min = torch.clamp(state.frame_count,
                                         max=p.MatchNumThresh)
             # IMU-propagated warm start (see the JAX package): the
@@ -960,8 +1015,9 @@ class VOFrontend:
                 vote_mask=self._solver_vote_mask(old_pre))
             Vg = vres.Vel
             new_fm, _ = forward_match(old_pre, new_klm, vres.m_id_f)
+        tl.mark("vo.pose")
 
-        with record_function("vo.imu_filter"):
+        with obs.span("vo.imu_filter"):
             # --- 6-dof linear correction + gyro fusion.
             ok_x, W_Xv, R_Xv, Xv = ext_rot_vel(
                 new_fm, Vg, cam.zfm, p.LocationUncertainty,
@@ -1011,8 +1067,9 @@ class VOFrontend:
             R0gva = so3_exp(dWgva)
             Rgva = torch.where(filter_on, Rgva_pre @ R0gva.T, R)
             Vgva = torch.where(filter_on, R0gva @ Vg + dVgva, Vgv)
+        tl.mark("vo.imu_filter")
 
-        with record_function("vo.match_depth"):
+        with obs.span("vo.match_depth"):
             # --- Second forward rotation of the old map.
             state2 = state._replace(klm=self._rotate_map(old_pre, R0))
             nan_fail = torch.any(~torch.isfinite(V)) | (~ok_x)
@@ -1022,6 +1079,7 @@ class VOFrontend:
              stereo_num, gauge_div, C_vel, aR_new, aV_new,
              aAge_new) = self._tail(state2, new_fm, V, P_V, R, nan_fail,
                                     stereo)
+        tl.mark("vo.match_depth")
 
         # --- Gravity-aligned pose integration (rebvo_second_t.cpp:528-546).
         u_est = Rgva.T @ ic.u_est
@@ -1040,12 +1098,14 @@ class VOFrontend:
         Pose = torch.where(filter_on, Pose_f, state.Pose)
         Pos = torch.where(filter_on, Pos_f, state.Pos)
         u_est = torch.where(filter_on, u_est, ic.u_est)
+        tl.mark()
 
-        with record_function("vo.keyframe"):
+        with obs.span("vo.keyframe"):
             (kf_carry, new_final, Pose, Pos, kf_id, kf_back_m,
              kf_saved) = self._kf_track(state, new_final, fv, Pose, Pos,
                                         K_scale, kl_num, s_rho_q, est_ok,
                                         state.G_gauge)
+        tl.mark("vo.keyframe")
 
         nav = NavData(
             t=t, dt=dt_frame, Rot=R, RotLie=so3_log(R),
@@ -1080,6 +1140,7 @@ class VOFrontend:
             navlog=navlog, navlog_n=navlog_n,
             G_gauge=state.G_gauge,   # VI: metric scale K owns the gauge
             VScaleC=C_vel, aR=aR_new, aV=aV_new, aAge=aAge_new)
+        tl.close()
         return new_state, out
 
     # ------------------------------------------------------------------
@@ -1101,7 +1162,12 @@ class VOFrontend:
         so chained calls copy no state, and the next call overwrites it;
         the outputs returned are copies. A capture that fails raises: a
         CUDA state never runs the steps eagerly here. On a CPU state the
-        same N steps run in a Python loop."""
+        same N steps run in a Python loop. The call is one `obs.unit` of
+        N frames."""
+        with obs.unit(self, len(frames)):
+            return self._step_scan(state, frames, ts)
+
+    def _step_scan(self, state: VOState, frames, ts):
         frames = self._frame(frames)
         ts = torch.as_tensor(ts, dtype=state.t.dtype).to(state.t.device)
         if frames.ndim != 3 or tuple(ts.shape) != tuple(frames.shape[:1]):
@@ -1120,12 +1186,14 @@ class VOFrontend:
         g = self._scan_graphs.get(tuple(frames.shape))
         if g is None:
             g = self._capture_scan(state, frames, ts)
-        g.frames.copy_(frames)
-        g.ts.copy_(ts)
-        if state is not self._scan_state:
-            _copy_state_(self._scan_state, state)
-        replay_graph(g.graph, g.launches)
-        return self._scan_state, tree_map(torch.clone, g.outs)
+
+        def copy_in():
+            g.frames.copy_(frames)
+            g.ts.copy_(ts)
+            if state is not self._scan_state:
+                _copy_state_(self._scan_state, state)
+
+        return self._scan_state, replay_graph(g.cap, copy_in)
 
     def _capture_scan(self, state: VOState, frames: Tensor,
                       ts: Tensor) -> _ScanGraph:
@@ -1154,9 +1222,8 @@ class VOFrontend:
             return outs
 
         with torch.cuda.device(frames.device):
-            graph, outs, launches = capture_graph(steps, (), self._scan_pool,
-                                                  warmup)
-        g = _ScanGraph(graph, frames_s, ts_s, outs, launches)
+            cap = capture_graph(steps, (), self._scan_pool, warmup)
+        g = _ScanGraph(cap, frames_s, ts_s)
         self._scan_graphs[tuple(frames.shape)] = g
         return g
 

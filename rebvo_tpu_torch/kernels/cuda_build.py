@@ -6,7 +6,10 @@ Each `csrc/<name>.cu` exposes a plain C interface and is compiled by
 flags, so an edited source or header rebuilds),
 then loaded with `ctypes`. Nothing is built at import: the first call
 that launches a kernel builds its library, and `build_all` builds every
-source at once, one `nvcc` process per source, started together.
+source at once, one `nvcc` process per source, started together. A
+library's build or load runs under the span `kernel.build`
+(rebvo_tpu_torch.obs); the counters `kernel.built` and `kernel.cached`
+count sources compiled by nvcc and libraries found up to date.
 """
 
 from __future__ import annotations
@@ -20,6 +23,8 @@ import subprocess
 import time
 from pathlib import Path
 from typing import Dict, List
+
+from rebvo_tpu_torch import obs
 
 _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
@@ -62,6 +67,7 @@ def build_all(names: List[str] = SOURCES) -> Dict[str, dict]:
         out = _lib_path(name)
         if out.exists():
             info[name] = {"seconds": 0.0, "ptxas": "", "cached": True}
+            obs.count("kernel.cached")
             continue
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
         cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
@@ -77,6 +83,7 @@ def build_all(names: List[str] = SOURCES) -> Dict[str, dict]:
         os.replace(tmp, out)
         info[name] = {"seconds": time.perf_counter() - t0, "ptxas": log,
                       "cached": False}
+        obs.count("kernel.built")
     if failed:
         raise RuntimeError("nvcc failed for " + "\n".join(failed))
     return info
@@ -85,7 +92,6 @@ def build_all(names: List[str] = SOURCES) -> Dict[str, dict]:
 @functools.cache
 def library(name: str) -> ctypes.CDLL:
     """The loaded library of `csrc/<name>.cu`, built first if needed."""
-    path = _lib_path(name)
-    if not path.exists():
+    with obs.span("kernel.build"):
         build_all([name])
-    return ctypes.CDLL(str(path))
+        return ctypes.CDLL(str(_lib_path(name)))

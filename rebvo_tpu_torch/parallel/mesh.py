@@ -27,9 +27,10 @@ from typing import Callable, Dict, List, NamedTuple, Optional, Sequence
 
 import torch
 
-from rebvo_tpu_torch.frontend.step import (_copy_state_, capture_graph,
-                                           replay_graph, tree_leaves,
-                                           tree_map)
+from rebvo_tpu_torch import obs
+from rebvo_tpu_torch.frontend.step import (Captured, _copy_state_,
+                                           capture_graph, replay_graph,
+                                           tree_leaves, tree_map)
 
 Tensor = torch.Tensor
 
@@ -94,29 +95,35 @@ def stack_lanes(tree, n: int):
 
 
 class _Captured(NamedTuple):
-    """One CUDA graph of the vmapped function: its static inputs, its
-    outputs and its kernel launches per replay."""
+    """One CUDA graph of the vmapped function and its static inputs."""
 
-    graph: "torch.cuda.CUDAGraph"
+    cap: Captured
     args: tuple
-    outs: object
-    launches: tuple
 
 
 class _BlockRunner:
     """vmap(fn) on one device's block; on a CUDA device, one CUDA graph
-    per input signature, sharing one memory pool."""
+    per input signature, sharing one memory pool. Each call is one
+    `obs.unit` over the block's lanes, numbered by `fn`'s frontend when
+    `fn` is a bound method of one (its `frame_id`)."""
 
     def __init__(self, fn: Callable, device: torch.device):
         self.vfn = torch.func.vmap(fn)
+        self.owner = getattr(fn, "__self__", None)
         self.device = device
         self.graphs: Dict[tuple, _Captured] = {}
         self.pool = None
 
     def __call__(self, *args):
+        leaves = tree_leaves(args)
+        lanes = leaves[0].shape[0] if leaves and isinstance(
+            leaves[0], Tensor) else 1
+        with obs.unit(self.owner, 1, lanes):
+            return self._call(args, leaves)
+
+    def _call(self, args, leaves):
         if self.device.type == "cpu":
             return self.vfn(*args)
-        leaves = tree_leaves(args)
         for x in leaves:
             if not isinstance(x, Tensor):
                 raise TypeError(
@@ -130,9 +137,7 @@ class _BlockRunner:
                 g = self.graphs[key] = self._capture(args)
             # a tensor passed back from the last call is the caller's
             # clone, so every input is copied into the static buffers
-            _copy_state_(g.args, args)
-            replay_graph(g.graph, g.launches)
-            return tree_map(torch.clone, g.outs)
+            return replay_graph(g.cap, lambda: _copy_state_(g.args, args))
 
     def _capture(self, args) -> _Captured:
         if self.pool is None:
@@ -143,9 +148,8 @@ class _BlockRunner:
             # on clones: a donating fn may write its inputs in place
             self.vfn(*tree_map(torch.clone, static))
 
-        graph, outs, launches = capture_graph(self.vfn, static, self.pool,
-                                              warmup)
-        return _Captured(graph, static, outs, launches)
+        return _Captured(capture_graph(self.vfn, static, self.pool, warmup),
+                         static)
 
 
 def shard_sequences(fn, mesh: Sequence[torch.device]) -> Callable:

@@ -1,16 +1,13 @@
 """The port's runtime_utils against the JAX package's on the CPU: a
 checkpoint written by either package's save_state loads into the other's
 state, and the next step from it matches the other package's next step
-(test_torch_step.py's single-step bars); and StageTimer / device_trace.
+(test_torch_step.py's single-step bars).
 
 At 188x120 on test_torch_step.py's rendered tilted-plane sequence, both
 packages on the fused detector (the JAX side's Pallas kernel in the
 interpreter, the port's plain version of its CUDA kernel), whose masks
 agree exactly.
 """
-
-import os
-import time
 
 import jax
 import jax.numpy as jnp
@@ -141,18 +138,3 @@ def test_checkpoint_roundtrip_and_refusals(seq, tmp_path):
     np.savez(str(tmp_path / "shape.npz"), **z)
     with pytest.raises(ValueError, match="Pos"):
         tru.load_state(str(tmp_path / "shape.npz"), tfe.init())
-
-
-def test_stage_timer_and_trace(tmp_path):
-    t = tru.StageTimer()
-    x = torch.ones(4)
-    for _ in range(2):
-        with t.stage("a", block_on=(x, {"y": x})):
-            time.sleep(0.01)
-    rep = t.report()
-    assert 0.005 < rep["a"] < 0.1
-    assert "a=" in str(t)
-    with tru.device_trace(str(tmp_path / "trace")):
-        torch.ones(8).sum()
-    assert any(f.endswith(".json") or f.endswith(".json.gz")
-               for f in os.listdir(tmp_path / "trace"))
