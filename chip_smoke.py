@@ -14,6 +14,16 @@ Phases, each printing one JSON line; any failure exits non-zero:
   3b. K2 check — the scale-space kernel likewise (the same inputs and
                 shapes, its own plans), and the prefix-sum twin's time and
                 difference;
+  3c. K3 check — the pose solver kernel against its plain version on the
+                card at the default config (752x480, K=16384): the
+                minimizer_rv calls of 16 rendered steps, each alone and the
+                16 as one vmapped launch (m_id_f and the float32 bits of
+                Vel, W0 and score equal, the rest within a float32 ulp, two
+                for rel_error), the kernel's and the plain version's device
+                ms for 1 and 16 lanes beside the bound (the map once and
+                each valid slot's two gathers an evaluation, at the card's
+                memory rate), its ptxas
+                resources and resident clusters, and its launch count;
   4. main     — the default-config mono path (752x480, KeylineMax=16384)
                 over 60 rendered frames, every step after the first under
                 torch.cuda.set_sync_debug_mode("error");
@@ -112,7 +122,8 @@ Phases, each printing one JSON line; any failure exits non-zero:
                 frames, pixels equal); run_vo --interactive with 's' after
                 frame 50; save_state after 10 frames, load_state, 5 more
                 steps against the run that was not interrupted;
-  9. kernels  — the kernel list, with K1's launches on every path.
+  9. kernels  — the kernel list, with K1's and K3's launches on every
+                path (K3 once a step on phases 4, 4b, 11, 11e and 13).
 Each path (phases 4, 4b, 6, 6b, 8, 10, 10c, 11, 11c, 11e, 12b, 13, 15)
 starts with every kernel's launch count at 0 and reports the counts it
 ends with. Each phase line carries `elapsed_s`, the seconds since the script started.
@@ -123,6 +134,7 @@ artefacts go to chiprun_out/smoke/.
 from __future__ import annotations
 
 import contextlib
+import ctypes
 import io
 import json
 import os
@@ -146,6 +158,7 @@ from rebvo_tpu_torch.io.trajectory import align_umeyama, ate_rmse
 from rebvo_tpu_torch.io.undistort import apply_undistort, build_undistort_map
 from rebvo_tpu_torch.kernels import cuda_build
 from rebvo_tpu_torch.kernels import cuda_scale_space as cs
+from rebvo_tpu_torch.kernels.registry import WRAPPERS
 from rebvo_tpu_torch.kernels.scale_space import (build_scale_space,
                                                  scale_space_plan)
 # published peaks of one H100 against which every bound here is stated
@@ -259,12 +272,12 @@ def emit(obj):
 
 
 def zero_launches():
-    for fn in cs.WRAPPERS:
+    for fn in WRAPPERS:
         fn.launches = 0
 
 
 def read_launches():
-    return {fn.__name__: fn.launches for fn in cs.WRAPPERS}
+    return {fn.__name__: fn.launches for fn in WRAPPERS}
 
 
 def map_tree(fn, tree):
@@ -426,6 +439,169 @@ def kernel_resources(name, log):
         r["threads_per_block"] = threads
         r["blocks_per_sm"] = cs.blocks_per_sm(name, inst == "fixed")
     return res
+
+
+N_K3_LANES = 16
+# K3 against its plain version: the fields whose float32 bits must agree,
+# and the ulps allowed elsewhere (float64 sums and solves in another order
+# round the other way near a float32 boundary; rel_error divides two norms)
+K3_EXACT = ("Vel", "W0", "score")
+K3_ULPS = {"RVel": 1, "RW0": 1, "W_X": 1, "rel_error": 2,
+           "rel_error_score": 1}
+
+
+def _ulps(a, b):
+    """Largest distance in float32 steps (NaNs equal to NaNs)."""
+    def ordered(x):
+        i = x.reshape(-1).view(torch.int32).long()
+        return torch.where(i < 0, -(i & 0x7FFFFFFF), i)
+    d = (ordered(a) - ordered(b)).abs()
+    nan = torch.isnan(a.reshape(-1)) & torch.isnan(b.reshape(-1))
+    return int(torch.where(nan, 0, d).max())
+
+
+def compare_pose(k, r):
+    """K3's MinimizerRVResult `k` against the plain version's `r`."""
+    res = {"m_id_f_mismatch": int((k.m_id_f != r.m_id_f).sum()),
+           "matched": int((r.m_id_f >= 0).sum())}
+    for f in K3_EXACT:
+        res[f"{f}_ulps"] = _ulps(getattr(k, f), getattr(r, f))
+    for f in K3_ULPS:
+        res[f"{f}_ulps"] = _ulps(getattr(k, f), getattr(r, f))
+    res["ok"] = (res["m_id_f_mismatch"] == 0
+                 and all(res[f"{f}_ulps"] == 0 for f in K3_EXACT)
+                 and all(res[f"{f}_ulps"] <= n for f, n in K3_ULPS.items()))
+    return res
+
+
+def k3_phase(smi, p, frames, info):
+    """Phase 3c (module docstring). Returns (the kernel's numbers for the
+    kernel list, ok)."""
+    from rebvo_tpu_torch.frontend import step as step_mod
+    from rebvo_tpu_torch.kernels import pose_solver as ps
+    dev = torch.device("cuda")
+    calls = []
+
+    def record(Vel, W0, old, fv, **kw):
+        calls.append((Vel, W0, ps.SolverMap(*(getattr(old, f) for f in
+                                              ps.SolverMap._fields)),
+                      fv, kw))
+        return ps.minimizer_rv(Vel, W0, old, fv, **kw)
+
+    fe = VOFrontend(p, device="cuda")
+    gf = torch.as_tensor(frames[:N_K3_LANES + 1], device=dev)
+    step_mod.minimizer_rv, orig = record, step_mod.minimizer_rv
+    try:
+        st = fe.bootstrap(fe.init(), gf[0], 0.0)
+        for i in range(1, N_K3_LANES + 1):
+            st, _ = fe.step(st, gf[i], i / p.config_fps)
+    finally:
+        step_mod.minimizer_rv = orig
+    torch.cuda.synchronize()
+    launches0 = ps.minimizer_rv.launches
+    cases = []
+    for Vel, W0, old, fv, kw in calls:
+        cases.append(compare_pose(ps.minimizer_rv(Vel, W0, old, fv, **kw),
+                                  ps.minimizer_rv_plain(Vel, W0, old, fv,
+                                                        **kw)))
+    # the 16 calls as 16 lanes of one vmapped call: one launch
+    kw0 = {k: v for k, v in calls[0][4].items()
+           if k not in ("max_s_rho", "match_num_min", "vote_mask")}
+    lanes = [torch.stack(x) for x in zip(*[
+        (c[0], c[1], *c[2], c[3].ikl, c[3].attrs, c[4]["max_s_rho"],
+         c[4]["match_num_min"]) for c in calls])]
+
+    def batched(solver):
+        def one(v, w, *rest):
+            f = rest[:len(ps.SolverMap._fields)]
+            ik, at, msr, mnm = rest[len(f):]
+            return tuple(solver(v, w, ps.SolverMap(*f), ps.FieldView(ik, at),
+                                max_s_rho=msr, match_num_min=mnm, **kw0))
+        return lambda: torch.func.vmap(one)(*lanes)
+
+    run_k16, run_p16 = batched(ps.minimizer_rv), batched(ps.minimizer_rv_plain)
+    bk = ps.MinimizerRVResult(*run_k16())
+    bp = ps.MinimizerRVResult(*run_p16())
+    lanes16 = compare_pose(bk, bp)
+    launches = ps.minimizer_rv.launches - launches0
+    ok = (all(c["ok"] for c in cases) and lanes16["ok"]
+          and launches == N_K3_LANES + 1)
+
+    Vel, W0, old, fv, kw = calls[-1]
+    l2 = torch.empty(64 * 2 ** 20 // 4, dtype=torch.float32, device=dev)
+    flush = l2.zero_
+
+    def run_k():
+        ps.minimizer_rv(Vel, W0, old, fv, **kw)
+
+    def run_p():
+        ps.minimizer_rv_plain(Vel, W0, old, fv, **kw)
+
+    # in turns: plain, kernel, kernel, plain (device ms, CUPTI)
+    plain_a = device_ms(run_p, 5, flush)
+    k_a = device_ms(run_k, 50, flush)
+    k16_a = device_ms(run_k16, 20, flush)
+    k_b = device_ms(run_k, 50, flush)
+    k16_b = device_ms(run_k16, 20, flush)
+    plain_b = device_ms(run_p, 5, flush)
+    plain16 = device_ms(run_p16, 3, flush)
+    call_ms = time_cuda(run_k, 100, flush)
+    K = old.valid.shape[-1]
+    n_eval = 1 + (1 + kw["iter_max"])
+    if kw["init_type"] not in (0, 1):
+        n_eval += 5 * (1 + kw["init_iter"])
+
+    def k3_bytes(c):
+        """Bytes one call must move at the least: the map's 9 fields
+        (valid a byte), the vote mask and m_id_f once, and in each
+        evaluation each valid slot's two gathers (the field image's entry,
+        6 floats of the matched keyline's row)."""
+        v, vote = c[2].valid, c[4].get("vote_mask")
+        once = K * (1 + 8 * 4 + 4) + (0 if vote is None else K)
+        return once + n_eval * int(v.sum()) * (4 + 6 * 4)
+
+    bw = H100_MEM_BYTES_PER_S
+    bytes_call = k3_bytes(calls[-1])
+    bound_ms = bytes_call / bw * 1e3
+    bound16_ms = sum(k3_bytes(c) for c in calls) / bw * 1e3
+    kernel_ms = statistics.median([k_a, k_b])
+    kernel16_ms = statistics.median([k16_a, k16_b])
+    lib = cuda_build.library("pose_lm")
+    intp = ctypes.POINTER(ctypes.c_int)
+    lib.pose_lm_max_clusters.argtypes = [ctypes.c_int, intp]
+    lib.pose_lm_max_clusters.restype = ctypes.c_int
+    cfg = [ctypes.c_int(0) for _ in range(4)]
+    lib.pose_lm_launch_config.argtypes = [ctypes.c_int] + [intp] * 4
+    lib.pose_lm_launch_config.restype = None
+    lib.pose_lm_launch_config(K, *[ctypes.byref(c) for c in cfg])
+    nclu = ctypes.c_int(0)
+    err = lib.pose_lm_max_clusters(K, ctypes.byref(nclu))
+    emit({"phase": "k3_check", "ok": ok, "cases": cases, "lanes16": lanes16,
+          "launches": launches, "expected_launches": N_K3_LANES + 1,
+          "K": K, "evaluations": n_eval, "bytes": bytes_call,
+          "valid_slots": int(old.valid.sum()),
+          "bound_ms": bound_ms, "bound_ms_16": bound16_ms,
+          "bound_by": "bytes (latency-bound: 13 dependent rounds)",
+          "kernel_ms": kernel_ms,
+          "kernel_ms_runs": [k_a, k_b], "x_bound": kernel_ms / bound_ms,
+          "kernel_ms_16": kernel16_ms, "kernel_ms_16_runs": [k16_a, k16_b],
+          "x_bound_16": kernel16_ms / bound16_ms,
+          "plain_ms": statistics.median([plain_a, plain_b]),
+          "plain_ms_runs": [plain_a, plain_b], "plain_ms_16": plain16,
+          "call_ms": call_ms, "library_ms": None,
+          "resources": ptxas_resources(info["pose_lm"]["ptxas"]),
+          "smem_bytes": cfg[0].value, "threads": cfg[1].value,
+          "cluster": cfg[2].value, "max_active_clusters": nclu.value,
+          "max_active_clusters_err": err, "card": smi,
+          "timing": "as k1_check; _16: 16 lanes in one vmapped call"})
+    k3 = {"kernel_ms": kernel_ms, "kernel_ms_16": kernel16_ms,
+          "call_ms": call_ms,
+          "plain_ms": statistics.median([plain_a, plain_b]),
+          "plain_ms_16": plain16, "bound_ms": bound_ms,
+          "bound_ms_16": bound16_ms, "x_bound": kernel_ms / bound_ms,
+          "resources": ptxas_resources(info["pose_lm"]["ptxas"]),
+          "check_launches": launches}
+    return k3, ok
 
 
 def profile_steps(fe, state, frames, ts, step=None, extra=None,
@@ -758,6 +934,7 @@ def stereo_path(smi, st_dir, pos_true):
              + [s >= ST_NUM_SHARE for s in settled])
     ok11 = (finite and min(kl) >= KL_FLOOR and min(kl1) >= KL_FLOOR
             and all(st_ok) and est_share >= 0.9 and k1 == 2 * N_ST
+            and st_launches["minimizer_rv"] == N_ST - 1
             and ST_SCALE_BAND[0] < scale < ST_SCALE_BAND[1]
             and ate_metric <= ST_ATE_METRIC * extent)
     steady = step_ms[5:]
@@ -766,7 +943,8 @@ def stereo_path(smi, st_dir, pos_true):
              pos_true=pos_true)
     emit({"phase": "stereo_main", "ok": ok11, "frames": N_ST,
           "launches": st_launches, "k1_launches": k1,
-          "k1_launches_expected": 2 * N_ST, "kl_min_cam0": min(kl),
+          "k1_launches_expected": 2 * N_ST,
+          "k3_launches_expected": N_ST - 1, "kl_min_cam0": min(kl),
           "kl_min_cam1": min(kl1), "kl_floor": KL_FLOOR,
           "stereo_num_min": min(snum[1:]), "klm_min": min(klm),
           "stereo_num_floor": ST_NUM_FLOOR,
@@ -965,11 +1143,13 @@ def vosystem_phase(smi, p, frames, ts, pos4):
           and n_kf >= 1 and len(sys_.pose_log.meas) == N_SYS - 1
           and len(read_ms) == N_SYS - 1
           and bool(np.all(np.isfinite(costs))) and snap_ok
-          and sys_launches["detect_candidates_cuda"] == N_SYS)
+          and sys_launches["detect_candidates_cuda"] == N_SYS
+          and sys_launches["minimizer_rv"] == N_SYS - 1)
     # frames 6 on (outs[j] is frame j + 1)
     diff = [a - b for a, b in zip(sys_ms[5:], step_ms[5:])]
     emit({"phase": "vosystem", "ok": ok, "frames": N_SYS,
-          "launches": sys_launches, "max_abs_pos_diff_vs_phase4": dpos,
+          "launches": sys_launches, "k3_launches_expected": N_SYS - 1,
+          "max_abs_pos_diff_vs_phase4": dpos,
           "tolerance": tol, "kf_saved": saved, "kf_store_count": n_kf,
           "pose_log_meas": len(sys_.pose_log.meas),
           "pose_graph_costs": costs.tolist(), "snapshot_ok": snap_ok,
@@ -1045,10 +1225,11 @@ def ba_phase(smi):
     card_cpu = ate_rmse(pf_card.cpu().numpy(), pf_cpu.numpy())
     ate0 = ate_rmse(p0, p_true)
     ate2 = ate_rmse(pd, p_true)
-    ok = (bool(np.all(np.isfinite(costs))) and np.isfinite(final)
-          and final <= BA_COST_DROP * costs[0]
-          and costs[-1] <= BA_COST_DROP * costs[0]
-          and ate2 < BA_ATE_DROP * ate0 and card_cpu <= BA_CARD_CPU_ATE)
+    ok = bool(np.all(np.isfinite(costs)) and np.isfinite(final)
+              and final <= BA_COST_DROP * costs[0]
+              and costs[-1] <= BA_COST_DROP * costs[0]
+              and ate2 < BA_ATE_DROP * ate0
+              and card_cpu <= BA_CARD_CPU_ATE)
     emit({"phase": "ba", "ok": ok, "keyframes": BA_F, "landmarks": BA_L,
           "observations": BA_L * BA_OBS, "iters": BA_ITERS,
           "costs": costs.tolist(), "cost_final": final,
@@ -1109,7 +1290,7 @@ def parity_phase(smi):
 
 def batched_phase(smi, p, kw):
     """Phase 13: the batched multi-sequence step on the card. Returns
-    (K1 launches, K1's [16,480,752] numbers, ok)."""
+    (launches of each kernel, K1's [16,480,752] numbers, ok)."""
     import warnings
 
     from rebvo_tpu_torch.bench import rendered_lanes
@@ -1214,11 +1395,13 @@ def batched_phase(smi, p, kw):
           "x_bound": k_ms / bound_ms}
     k1_launches = got["detect_candidates_cuda"]
     ok = (ok_lanes and k1_launches == n and mism == 0 and err < 5e-3
+          and got["minimizer_rv"] == N_BATCH_STEPS
           and bool(np.all(np.isfinite(bpos))))
     frames = N_LANES * N_BATCH_STEPS
     emit({"phase": "batched", "ok": ok, "lanes": N_LANES,
           "steps": N_BATCH_STEPS, "launches": got,
-          "k1_launches_expected": n, "lane_checks": lanes_res,
+          "k1_launches_expected": n, "k3_launches_expected": N_BATCH_STEPS,
+          "lane_checks": lanes_res,
           "ms_per_batched_step": wall_ms / N_BATCH_STEPS,
           "ms_per_frame": wall_ms / frames,
           "frames_per_s": frames / (wall_ms / 1e3),
@@ -1235,7 +1418,7 @@ def batched_phase(smi, p, kw):
                     "replay, output clones) + synchronize; activities "
                     "and busy ms by torch.profiler over one call each",
           "card": smi})
-    return k1_launches, k1, ok
+    return got, k1, ok
 
 
 def run_batch_phase(smi):
@@ -1886,6 +2069,11 @@ def main():
         return 1
     del l2
 
+    # ---- 3c. K3 against its plain version ---------------------------------
+    k3, ok3c = k3_phase(smi, p, frames, info)
+    if not ok3c:
+        return 1
+
     # ---- 4. main path at full width -----------------------------------
     fe = VOFrontend(p, device="cuda")
     gpu_frames = torch.as_tensor(frames, device=dev)
@@ -1915,13 +2103,14 @@ def main():
     est = [bool(o.nav.estimation_ok) for o in outs]
     est_share = float(np.mean(est[2:]))
     ok4 = (bool(np.all(np.isfinite(pos))) and min(kl) >= KL_FLOOR
-           and est_share >= 0.9 and launches == N_FRAMES)
+           and est_share >= 0.9 and launches == N_FRAMES
+           and main_launches["minimizer_rv"] == N_FRAMES - 1)
     steady = step_ms[5:]
     np.savez(os.path.join(OUT, "main_path.npz"), pos=pos, kl=kl, klm=klm,
              est=est, step_ms=step_ms)
     emit({"phase": "main_path", "ok": ok4, "frames": N_FRAMES,
           "launches": main_launches, "kl_min": min(kl),
-          "kl_floor": KL_FLOOR,
+          "k3_launches_expected": N_FRAMES - 1, "kl_floor": KL_FLOOR,
           "klm_min": min(klm), "est_ok_share_after_2": est_share,
           "pos_finite": bool(np.all(np.isfinite(pos))),
           "ms_per_frame_median": statistics.median(steady),
@@ -1982,12 +2171,15 @@ def main():
         skl = torch.cat([o.nav.kl_num for o in souts]).cpu().tolist()
         dpos = float(np.abs(spos - ref_pos).max())
         k1_per = got["detect_candidates_cuda"] / (N_SCAN // n)
-        ok_n = skl == ref_kl and dpos <= tol4b and k1_per == n
+        k3_per = got["minimizer_rv"] / (N_SCAN // n)
+        ok_n = (skl == ref_kl and dpos <= tol4b and k1_per == n
+                and k3_per == n)
         ok4b = ok4b and ok_n
         scan[f"n{n}"] = {"ok": ok_n, "replays": N_SCAN // n,
                          "ms_per_frame": ms, "kl_equal": skl == ref_kl,
                          "max_abs_pos_diff": dpos, "launches": got,
-                         "k1_launches_per_replay": k1_per}
+                         "k1_launches_per_replay": k1_per,
+                         "k3_launches_per_replay": k3_per}
     peak_graph_mb = torch.cuda.max_memory_allocated() / 2 ** 20
     # one N=8 replay under torch.profiler: the device's busy time per
     # frame inside the graph, and so its idle share on the graph path
@@ -2104,7 +2296,7 @@ def main():
         return 1
 
     # ---- 13. the batched step, 13b. run_batch, 14. distributed ------------
-    batched_k1, k1_b16, ok13 = batched_phase(smi, p, kw)
+    batched_launches, k1_b16, ok13 = batched_phase(smi, p, kw)
     if not ok13:
         return 1
     if not run_batch_phase(smi):
@@ -2143,7 +2335,8 @@ def main():
             **{k: v["detect_candidates_cuda"]
                for k, v in st_launches.items()},
             "vosystem": sys_launches["detect_candidates_cuda"],
-            "parity_row": parity_k1, "batched": batched_k1,
+            "parity_row": parity_k1,
+            "batched": batched_launches["detect_candidates_cuda"],
             "m13_telemetry": m13_k1}}, {
         "name": "build_scale_space", "route": "cuda",
         "source": "rebvo_tpu_torch/csrc/build_scale_space.cu",
@@ -2159,7 +2352,24 @@ def main():
             "bench": bench_launches["build_scale_space_cuda"],
             "vi_main": vi_launches["vi_main"]["build_scale_space_cuda"],
             "stereo_main": st_launches["stereo_main"][
-                "build_scale_space_cuda"]}}]})
+                "build_scale_space_cuda"]}}, {
+        "name": "pose_lm", "route": "cuda",
+        "source": "rebvo_tpu_torch/csrc/pose_lm.cu",
+        "replaces": None,
+        "replaces_function": "none: minimizer_rv's PyTorch ops "
+                             "(kernels/pose_solver.minimizer_rv_plain)",
+        "launches": main_launches["minimizer_rv"], **k3,
+        "ms": k3["kernel_ms"], "bound_by": "bytes", "library_ms": None,
+        "launches_by_path": {
+            "main_path": main_launches["minimizer_rv"],
+            "scan_n8": scan["n8"]["launches"]["minimizer_rv"],
+            "scan_n2": scan["n2"]["launches"]["minimizer_rv"],
+            "bench": bench_launches["minimizer_rv"],
+            "vi_main": vi_launches["vi_main"]["minimizer_rv"],
+            "vi_run_vo": vi_launches["vi_run_vo"]["minimizer_rv"],
+            **{k: v["minimizer_rv"] for k, v in st_launches.items()},
+            "vosystem": sys_launches["minimizer_rv"],
+            "batched": batched_launches["minimizer_rv"]}}]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,
                                  "count": torch.cuda.device_count()}})

@@ -203,7 +203,7 @@ def main(argv=None):
     from rebvo_tpu_torch.io.render import render_lateral, synth_frames
     from rebvo_tpu_torch.io.undistort import (apply_undistort,
                                               build_undistort_map)
-    from rebvo_tpu_torch.kernels.cuda_scale_space import WRAPPERS
+    from rebvo_tpu_torch.kernels.registry import WRAPPERS
 
     params = load_config(args.config) if args.config else REBVOParameters()
     if args.imu:
@@ -376,7 +376,7 @@ def write_trace(path) -> None:
 
 def print_launches(launches0) -> None:
     """The last line: each kernel's launches since `launches0`."""
-    from rebvo_tpu_torch.kernels.cuda_scale_space import WRAPPERS
+    from rebvo_tpu_torch.kernels.registry import WRAPPERS
     print("kernel_launches=" + json.dumps(
         {fn.__name__: fn.launches - launches0[fn.__name__]
          for fn in WRAPPERS}), flush=True)

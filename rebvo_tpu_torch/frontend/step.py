@@ -351,7 +351,7 @@ def capture_graph(fn, args, pool, warmup) -> Captured:
     for `replay_graph` to add back; each captured step's stage events are
     nodes of the graph (`obs.Timeline`). Used by `VOFrontend.step_scan`
     and `parallel.mesh.shard_sequences`."""
-    from rebvo_tpu_torch.kernels.cuda_scale_space import WRAPPERS
+    from rebvo_tpu_torch.kernels.registry import WRAPPERS
     with obs.span("graph.capture"):
         dev = torch.cuda.current_device()
         main = torch.cuda.current_stream(dev)

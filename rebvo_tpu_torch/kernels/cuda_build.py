@@ -36,7 +36,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "--fmad=false", "-shared", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v"]
 
-SOURCES = ("detect_candidates", "build_scale_space")
+SOURCES = ("detect_candidates", "build_scale_space", "pose_lm")
 
 
 def _nvcc() -> str:

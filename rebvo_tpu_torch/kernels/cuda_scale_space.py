@@ -12,7 +12,8 @@ For a CUDA tensor each wrapper launches its kernel (built by `nvcc` at
 first use) or raises; for a CPU tensor it runs its plain version, which
 repeats the kernel's arithmetic in the Pallas kernels' shift-and-add
 order. There is no fallback from the card to the plain version. Each
-wrapper counts its launches in `.launches`; `WRAPPERS` lists them.
+wrapper counts its launches in `.launches` (`kernels/registry.WRAPPERS`
+lists every kernel wrapper).
 
 Both kernels run one tile pipeline (`csrc/tile_pipeline.cuh`);
 `launch_plan` is the pure function that picks its instantiation (the
@@ -495,6 +496,3 @@ def blocks_per_sm(kernel: str, fixed: bool) -> int:
         raise RuntimeError(f"{kernel}_occupancy failed: cudaError {err}")
     return n.value
 
-
-# every kernel wrapper of this module (each counts its launches)
-WRAPPERS = (detect_candidates_cuda, build_scale_space_cuda)

@@ -1,11 +1,12 @@
-"""Host build of the scale-space kernels K1 and K2 for the CPU tests.
+"""Host build of the CUDA kernels K1, K2 and K3 for the CPU tests.
 
-`library()` compiles `tests/tile_host.cpp`, which includes both kernel
+`library()` compiles `tests/tile_host.cpp`, which includes the kernel
 sources of `rebvo_tpu_torch/csrc` and their launchers, with g++ under
 `tests/cuda_host_emu.h` into `build/host_emu/` at the repository root
 (once per hash of the sources and flags), and loads it with ctypes.
-`detect` and `sspace` run the kernels through the CUDA wrappers' own launch
-path (`cuda_scale_space.detect_launch`, `sspace_launch`) on CPU tensors.
+`detect`, `sspace` and `pose` run the kernels through the CUDA wrappers'
+own launch paths (`cuda_scale_space.detect_launch`, `sspace_launch`,
+`pose_solver.pose_launch`) on CPU tensors.
 """
 
 from __future__ import annotations
@@ -19,6 +20,7 @@ import subprocess
 from pathlib import Path
 
 from rebvo_tpu_torch.kernels import cuda_scale_space as cs
+from rebvo_tpu_torch.kernels import pose_solver as ps
 
 ROOT = Path(__file__).resolve().parents[1]
 TESTS = ROOT / "tests"
@@ -36,7 +38,7 @@ def compiler():
 
 @functools.cache
 def library() -> ctypes.CDLL:
-    """The host build of both kernels, compiled first if needed."""
+    """The host build of the kernels, compiled first if needed."""
     srcs = [TESTS / "cuda_host_emu.h", TESTS / "tile_host.cpp",
             *sorted(CSRC.glob("*.cu*"))]
     digest = hashlib.sha256(b"".join(p.read_bytes() for p in srcs) +
@@ -54,8 +56,10 @@ def library() -> ctypes.CDLL:
     lib = ctypes.CDLL(str(out))
     lib.detect_candidates_launch.argtypes = cs.K1_ARGTYPES
     lib.build_scale_space_launch.argtypes = cs.K2_ARGTYPES
+    lib.pose_lm_launch.argtypes = ps.K3_ARGTYPES
     for fn in (lib.detect_candidates_launch, lib.build_scale_space_launch,
-               lib.tile_reciprocals, lib.tile_table_shape):
+               lib.pose_lm_launch, lib.tile_reciprocals,
+               lib.tile_table_shape):
         fn.restype = ctypes.c_int
     return lib
 
@@ -70,3 +74,9 @@ def sspace(img, sigma0, k_sigma):
     """K2's host build on a CPU `img`, as `build_scale_space_cuda`."""
     return cs.sspace_launch(library().build_scale_space_launch, img, None,
                             sigma0, k_sigma)
+
+
+def pose(tensors, **kw):
+    """K3's host build on CPU inputs (pose_solver._INPUTS' order), as the
+    card's `minimizer_rv`: the packed outputs and m_id_f."""
+    return ps.pose_launch(library().pose_lm_launch, tensors, None, **kw)
