@@ -49,6 +49,13 @@ Phases, each printing one JSON line; any failure exits non-zero:
                 tests/test_vi_step.py's bars at full width, K inside the
                 filter's clamp on every filtered frame, and the trajectory
                 near the written path, similarity- and rigidly aligned;
+  10e. vi_scan — the last 16 frames of phase 10 again, from its state
+                before them (the scale filter running), as two replays
+                of step_scan's visual-inertial CUDA graph with N=8 under
+                set_sync_debug_mode("error"), against the same frames
+                stepped eagerly through step_imu_donated: state and
+                outputs bit for bit; K1 8 launches a replay, K3 none; one
+                capture, its host windows' samples counted and none cut;
   10b. vi_profile — 2 more VI steps under torch.profiler, as phase 5
                 (spans vo.imu and vo.imu_filter included);
   10c. vi_run_vo — run_vo --euroc DIR --imu on the card against phase 10;
@@ -124,7 +131,8 @@ Phases, each printing one JSON line; any failure exits non-zero:
                 steps against the run that was not interrupted;
   9. kernels  — the kernel list, with K1's and K3's launches on every
                 path (K3 once a step on phases 4, 4b, 11, 11e and 13).
-Each path (phases 4, 4b, 6, 6b, 8, 10, 10c, 11, 11c, 11e, 12b, 13, 15)
+Each path (phases 4, 4b, 6, 6b, 8, 10, 10e, 10c, 11, 11c, 11e, 12b, 13,
+15)
 starts with every kernel's launch count at 0 and reports the counts it
 ends with. Each phase line carries `elapsed_s`, the seconds since the script started.
 Then the nvidia-smi line, and last {"ok": true, "device": {...}}. Longer
@@ -150,8 +158,9 @@ import torch
 
 import rebvo_tpu_torch  # noqa: F401  (sets the package's numerics flags)
 from rebvo_tpu_torch.config import REBVOParameters, save_config
-from rebvo_tpu_torch.frontend.imu import ImuWindow
-from rebvo_tpu_torch.frontend.step import VOFrontend
+from rebvo_tpu_torch import obs
+from rebvo_tpu_torch.frontend.imu import ImuWindow, stack_windows
+from rebvo_tpu_torch.frontend.step import VOFrontend, tree_leaves
 from rebvo_tpu_torch.io.dataset import DatasetSequence, imu_window_size
 from rebvo_tpu_torch.io.render import render_lateral, write_euroc_vi
 from rebvo_tpu_torch.io.trajectory import align_umeyama, ate_rmse
@@ -173,6 +182,7 @@ N_CPU = 8
 N_VI = 60                # VI frames of phase 10
 N_VI_PROFILE = 2         # and of phase 10b after them
 N_VI_CPU = 20            # VI frames of phase 10d: the filter runs from 15
+N_VI_SCAN, VI_SCAN_N = 16, 8   # phase 10e: phase 10's last frames, chunk
 VI_K_FLOOR, VI_K_CEIL = 1e-2, 100.0   # phase 10's open band for K
 VI_K_SETTLED = 0.05      # its last 10 frames' K within this of the final
 VI_ATE_SHAPE = 0.20      # phase 10's ATE bars, shares of the path extent:
@@ -697,6 +707,8 @@ def vi_path(smi, vi_dir, pos_true, write_s):
         try:
             if on <= i < N_VI_CPU:           # phase 10d's start states
                 pre[i] = clone_tree(state)
+            if i == N_VI - N_VI_SCAN:        # phase 10e's start state
+                scan0 = clone_tree(state)
             a.record()
             f = apply_undistort(umap, frames[i])
             b.record()
@@ -773,6 +785,79 @@ def vi_path(smi, vi_dir, pos_true, write_s):
     if not ok10:
         return {"vi_main": vi_launches}, False
 
+    # ---- 10e. the VI graph against the eager VI steps -------------------
+    sc = range(N_VI - N_VI_SCAN, N_VI)
+    sc_f = torch.stack([apply_undistort(umap, frames[i]) for i in sc])
+    sc_t = torch.tensor([ts[i] for i in sc], dtype=torch.float32,
+                        device="cuda")
+    st = clone_tree(scan0)
+    ref = []
+    for k, i in enumerate(sc):
+        st, out = fe.step_imu_donated(st, sc_f[k], sc_t[k], wins[i],
+                                      fe.R_cam2imu, fe.T_cam2imu)
+        ref.append(out)
+    ref_state = st
+    chunks = [slice(c, c + VI_SCAN_N) for c in range(0, N_VI_SCAN, VI_SCAN_N)]
+    host_w = [stack_windows([items[i][2] for i in sc[c]]) for c in chunks]
+    c0 = obs.counters()
+    fe.step_scan(clone_tree(scan0), sc_f[chunks[0]], sc_t[chunks[0]],
+                 host_w[0])                            # the capture
+    c1 = obs.counters()
+    dev_w = [ImuWindow(*[x.cuda() for x in w]) for w in host_w]
+    torch.cuda.synchronize()
+    zero_launches()
+    st, souts = clone_tree(scan0), []
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for c, w in zip(chunks, dev_w):
+            st, out = fe.step_scan(st, sc_f[c], sc_t[c], w)
+            souts.append(out)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    scan_launches = read_launches()
+    c2 = obs.counters()
+
+    def delta(a, b, name):
+        return b.get(name, 0) - a.get(name, 0)
+
+    def differing(a, b):
+        """Leaves of a and b that differ (NaN equal to NaN)."""
+        la, lb = tree_leaves(a), tree_leaves(b)
+        if len(la) != len(lb):
+            return -1
+        return sum(not (x.shape == y.shape and x.dtype == y.dtype and bool(
+            ((x == y) | (x != x) & (y != y)).all())) for x, y in zip(la, lb))
+    ref_outs = [torch.stack(xs)
+                for xs in zip(*[tree_leaves(o) for o in ref])]
+    scan_outs = [torch.cat(xs)
+                 for xs in zip(*[tree_leaves(o) for o in souts])]
+    n_rep = len(chunks)
+    d_state = differing(st, ref_state)
+    d_outs = differing(scan_outs, ref_outs)
+    k1_per = scan_launches["detect_candidates_cuda"] / n_rep
+    k3 = scan_launches["minimizer_rv"]
+    samples = int(host_w[0].count.sum())      # the capture's windows
+    counts = {"graph.captures": delta(c0, c1, "graph.captures"),
+              "graph.replays": delta(c1, c2, "graph.replays"),
+              "imu.samples": delta(c0, c1, "imu.samples"),
+              "imu.truncated": delta(c0, c1, "imu.truncated")}
+    ok10e = (d_state == 0 and d_outs == 0 and k1_per == VI_SCAN_N
+             and k3 == 0 and counts["graph.captures"] == 1
+             and counts["graph.replays"] == n_rep
+             and counts["imu.samples"] == samples
+             and counts["imu.truncated"] == 0)
+    emit({"phase": "vi_scan", "ok": ok10e, "frames": N_VI_SCAN,
+          "from_frame": sc[0], "chunk": VI_SCAN_N, "replays": n_rep,
+          "K_scale_start": float(scan0.K_scale),
+          "state_leaves_differing": d_state,
+          "output_leaves_differing": d_outs, "launches": scan_launches,
+          "k1_launches_per_replay": k1_per, "k3_launches": k3,
+          "counters": counts, "imu_samples_expected": samples,
+          "compare": "bit for bit, NaN equal to NaN", "card": smi})
+    if not ok10e:
+        return {"vi_main": vi_launches, "vi_scan": scan_launches}, False
+
     # ---- 10b. where the VI step's time goes -----------------------------
     pf = [apply_undistort(umap, f) for f in frames[N_VI:]]
     _, prof = profile_steps(fe, state, pf, ts[N_VI:], step=fe.step_imu,
@@ -803,7 +888,8 @@ def vi_path(smi, vi_dir, pos_true, write_s):
           "expected_rows": N_VI - 1, "max_abs_pos_diff": dpos,
           "tolerance": tol, "launches": rv_launches})
     if not ok10c:
-        return {"vi_main": vi_launches, "vi_run_vo": rv_launches}, False
+        return {"vi_main": vi_launches, "vi_scan": scan_launches,
+                "vi_run_vo": rv_launches}, False
 
     # ---- 10d. the first VI frames on the CPU, past the filter's start ---
     # The sequence: kl_num equal on every frame, Pos within phase 7's bar
@@ -861,7 +947,8 @@ def vi_path(smi, vi_dir, pos_true, write_s):
           "seq_max_abs_g_diff": gap("g", seq),
           "seq_max_abs_pos_diff": gap("Pos", seq),
           "seq_max_abs_vel_diff": gap("Vel", seq)})
-    return {"vi_main": vi_launches, "vi_run_vo": rv_launches}, ok10d
+    return {"vi_main": vi_launches, "vi_scan": scan_launches,
+            "vi_run_vo": rv_launches}, ok10d
 
 
 def _tum_rows(path):
@@ -2330,6 +2417,7 @@ def main():
             "scan_n2": scan["n2"]["launches"]["detect_candidates_cuda"],
             "bench": bench_launches["detect_candidates_cuda"],
             "vi_main": vi_launches["vi_main"]["detect_candidates_cuda"],
+            "vi_scan_n8": vi_launches["vi_scan"]["detect_candidates_cuda"],
             "vi_run_vo": vi_launches["vi_run_vo"][
                 "detect_candidates_cuda"],
             **{k: v["detect_candidates_cuda"]
@@ -2366,6 +2454,7 @@ def main():
             "scan_n2": scan["n2"]["launches"]["minimizer_rv"],
             "bench": bench_launches["minimizer_rv"],
             "vi_main": vi_launches["vi_main"]["minimizer_rv"],
+            "vi_scan_n8": vi_launches["vi_scan"]["minimizer_rv"],
             "vi_run_vo": vi_launches["vi_run_vo"]["minimizer_rv"],
             **{k: v["minimizer_rv"] for k, v in st_launches.items()},
             "vosystem": sys_launches["minimizer_rv"],

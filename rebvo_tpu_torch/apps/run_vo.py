@@ -23,6 +23,11 @@ Examples:
     # frames per call: on the card, one replay of a captured CUDA graph
     python -m rebvo_tpu_torch.apps.run_vo --render 60 --chunk 8
 
+    # EuRoC directory, visual-inertial, 8 frames and their IMU windows
+    # per call (one replay of a captured CUDA graph of step_imu_donated)
+    python -m rebvo_tpu_torch.apps.run_vo --euroc /data/MH_01_easy/mav0 \\
+        --imu --chunk 8
+
 As in the JAX package's run_vo, every input frame goes through the
 config's undistortion when `UseUndistort` is set, synthetic frames
 included; `--render` (the port's own pinhole renderer) zeroes the
@@ -32,14 +37,17 @@ In IMU mode (`--imu` or `ImuMode`) a frame with an IMU window runs
 step. In stereo mode (`--stereo` or `StereoAvaiable`) a dataset's cam1
 stream is paired with cam0 and undistorted through cam1's own map; a
 frame whose pair was dropped, and every `--synthetic` or `--render`
-frame, runs without the pair. `--chunk` is used only where no IMU
-window or pair frame is read and no keyframe is captured, as in the JAX
-package. `--kf-every N` pushes the state's edge map and pose into a
-keyframe store on the device every N frames (no host read mid-run) and
-writes it at exit to `<out-dir>/kf_list.npz` or `--save-kf PATH`: the
-input of `run_ba`. `--save-video raw|mjpeg` encodes every input frame
-(after undistortion) into `<out-dir>/video.rvv` (io/video; the
-reference's VideoSave path, rebvo_third_t.cpp:249-256; mjpeg needs PIL).
+frame, runs without the pair. `--chunk N` steps N frames a call
+(`VOFrontend.step_scan`), in IMU mode N frames with their IMU windows
+(a frame without a window runs the mono step on its own, after the
+frames collected before it); it is not used with stereo pairs or
+`--kf-every`, whose frames run one at a time. `--kf-every N` pushes the
+state's edge map and pose into a keyframe store on the device every N
+frames (no host read mid-run) and writes it at exit to
+`<out-dir>/kf_list.npz` or `--save-kf PATH`: the input of `run_ba`.
+`--save-video raw|mjpeg` encodes every input frame (after undistortion)
+into `<out-dir>/video.rvv` (io/video; the reference's VideoSave path,
+rebvo_third_t.cpp:249-256; mjpeg needs PIL).
 `--interactive` runs the sequence through `VOSystem` under the
 reference rebvorun's stdin command loop (q/s/p/r/k/f/a,
 app/rebvorun/main.cpp:92-140), frames as the sequence gives them, as in
@@ -169,8 +177,9 @@ def main(argv=None):
                     help="stereo mode (StereoAvaiable=1): pairs the cam1 "
                          "stream")
     ap.add_argument("--chunk", type=int, default=0,
-                    help="step N frames per call (VOFrontend.step_scan); "
-                         "mono only")
+                    help="step N frames per call (VOFrontend.step_scan), "
+                         "with their IMU windows in IMU mode; not with "
+                         "stereo pairs or --kf-every")
     ap.add_argument("--kf-every", type=int, default=0,
                     help="push a keyframe (edge map + pose) every N frames "
                          "into a store on the device, saved at exit: the "
@@ -196,9 +205,9 @@ def main(argv=None):
     import torch
 
     from rebvo_tpu_torch.config import REBVOParameters, load_config
+    from rebvo_tpu_torch.frontend.imu import stack_windows
     from rebvo_tpu_torch.frontend.step import VOFrontend
-    from rebvo_tpu_torch.io.dataset import (DatasetSequence, imu_window_size,
-                                            read_cam_imu_se3)
+    from rebvo_tpu_torch.io.dataset import DatasetSequence, imu_window_size
     from rebvo_tpu_torch.io.logger import RunLogger
     from rebvo_tpu_torch.io.render import render_lateral, synth_frames
     from rebvo_tpu_torch.io.undistort import (apply_undistort,
@@ -260,13 +269,6 @@ def main(argv=None):
             if params.useUndistort else None)
     umap_pair = (build_undistort_map(fe.cam_pair, device=device)
                  if stereo and params.useUndistort else None)
-    # Camera->IMU extrinsics (the reference applies them inside the IMU
-    # integration, imugrabber.cpp:135-160,217-250), as float32
-    R_c2i = T_c2i = None
-    if params.ImuMode and params.CamImuSE3File:
-        R_np, T_np = read_cam_imu_se3(params.CamImuSE3File)
-        R_c2i = torch.as_tensor(R_np, dtype=torch.float32).to(device)
-        T_c2i = torch.as_tensor(T_np, dtype=torch.float32).to(device)
     kf_store = None
     if args.kf_every > 0:
         from rebvo_tpu_torch.backend.keyframe import (KeyframeStore,
@@ -277,11 +279,11 @@ def main(argv=None):
         # package
         kf_store = KeyframeStore.empty(cap, params.KeylineMax,
                                        device=device)
-    mono = not (params.ImuMode or stereo)
-    if args.chunk > 1 and not (mono and kf_store is None):
-        print("run_vo: --chunk is used only in mono vision-only runs "
-              "without --kf-every", file=sys.stderr)
-    chunk = [] if args.chunk > 1 and mono and kf_store is None else None
+    single = stereo or kf_store is not None
+    if args.chunk > 1 and single:
+        print("run_vo: --chunk is not used with --stereo or --kf-every; "
+              "each frame is stepped on its own", file=sys.stderr)
+    chunk = [] if args.chunk > 1 and not single else None
     venc = vout = None
     if args.save_video:
         from rebvo_tpu_torch.io.video import (VIDEO_ENCODER_TYPE_MJPEG,
@@ -292,6 +294,21 @@ def main(argv=None):
         venc = make_encoder(etype, params.ImageWidth, params.ImageHeight)
         vout = VideoStreamWriter(os.path.join(args.out_dir, "video.rvv"),
                                  params.ImageWidth, params.ImageHeight)
+
+    def step_one(state, frame, t, win, pair=None):
+        # donated steps: the previous state's buffers are reused; the
+        # camera->IMU extrinsics (CamImuSE3File) are the frontend's
+        if params.ImuMode and win is not None:
+            return fe.step_imu_donated(state, frame, t, win, fe.R_cam2imu,
+                                       fe.T_cam2imu, pair)[0]
+        return fe.step_donated(state, frame, t, pair)[0]
+
+    def step_chunk(state, items):
+        wins = [w for _, _, w in items]
+        return fe.step_scan(
+            state, torch.stack([f for f, _, _ in items]),
+            np.asarray([tt for _, tt, _ in items], np.float32),
+            stack_windows(wins) if wins[0] is not None else None)[0]
 
     state = fe.init()
     n_done = 0
@@ -309,19 +326,18 @@ def main(argv=None):
                 pair = apply_undistort(umap_pair, pair)
         if n_done == 0:
             state = fe.bootstrap(state, frame, t, pair)
-        elif chunk is not None:
-            chunk.append((frame, t))
+        elif chunk is not None and (win is not None or not params.ImuMode):
+            chunk.append((frame, t, win))
             if len(chunk) == args.chunk:
-                state, _ = fe.step_scan(
-                    state, torch.stack([f for f, _ in chunk]),
-                    np.asarray([tt for _, tt in chunk], np.float32))
+                state = step_chunk(state, chunk)
                 chunk.clear()
-        elif params.ImuMode and win is not None:
-            # donated steps: the previous state's buffers are reused
-            state, _ = fe.step_imu_donated(state, frame, t, win, R_c2i,
-                                           T_c2i, pair)
         else:
-            state, _ = fe.step_donated(state, frame, t, pair)
+            # the frames collected before this one, then this one
+            for f, tt, w in chunk or ():
+                state = step_one(state, f, tt, w)
+            if chunk:
+                chunk.clear()
+            state = step_one(state, frame, t, win, pair)
         if kf_store is not None and n_done > 0 and \
                 n_done % args.kf_every == 0:
             push_keyframe(kf_store, state.klm, state.t, state.K_scale,
@@ -335,8 +351,8 @@ def main(argv=None):
         if n_done >= n_total:
             break
     # the partial tail chunk, one frame at a time
-    for f, tt in chunk or ():
-        state, _ = fe.step_donated(state, f, tt)
+    for f, tt, w in chunk or ():
+        state = step_one(state, f, tt, w)
     if device == "cuda":
         torch.cuda.synchronize()
     wall = time.perf_counter() - t_start

@@ -22,7 +22,7 @@ device rather than copied from the host.
 from __future__ import annotations
 
 import math
-from typing import NamedTuple, Tuple
+from typing import NamedTuple, Sequence, Tuple
 
 import torch
 
@@ -46,6 +46,14 @@ class ImuWindow(NamedTuple):
     accel: Tensor    # [S, 3]
     count: Tensor    # int32 — valid samples
     tsample: Tensor  # scalar
+
+
+def stack_windows(wins: Sequence[ImuWindow]) -> ImuWindow:
+    """Windows of one size stacked on a leading axis (gyro and accel
+    [N, S, 3], count [N], tsample [N]): a chunk's windows for
+    `VOFrontend.step_scan`."""
+    return ImuWindow(*[torch.stack([torch.as_tensor(w[k]) for w in wins])
+                       for k in range(len(ImuWindow._fields))])
 
 
 class IntegratedImu(NamedTuple):

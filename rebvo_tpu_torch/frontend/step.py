@@ -8,6 +8,7 @@ rebvo_first_t.cpp:259-272).
     state, out = fe.step(state, frame, t)              # pure
     state, out = fe.step_donated(state, frame, t)      # reuses the input
     state, outs = fe.step_scan(state, frames, ts)      # N frames at once
+    state, outs = fe.step_scan(state, frames, ts, wins)  # N VI frames
     state, out = fe.step_imu(state, frame, t, win)     # visual-inertial
     state, out = fe.step_imu_donated(state, frame, t, win)
     state, out = fe.step(state, frame, t, frame_pair)  # stereo (any step)
@@ -44,8 +45,10 @@ or of a vmapped step times its stages again, frame by frame; they are
 read at the next entry call, without a sync. Every entry call is one
 `obs.unit`, numbered by the frontend's host-side `frame_id`.
 
-The JAX package has no visual-inertial `step_scan`, and its run_vo
-refuses `--chunk` in IMU mode, so no CUDA graph of `step_imu` exists.
+`step_scan` given the N frames' IMU windows (`wins`, stacked by
+`frontend.imu.stack_windows`) runs N `step_imu_donated` steps, with the
+frontend's camera-to-IMU extrinsics, as one CUDA graph of their own; the
+JAX package has no visual-inertial `step_scan`.
 
 Stereo (`StereoAvaiable=1`): every entry point but `step_scan` takes the
 cam1 frame as `frame_pair`. `_detect_pair` runs the detector on it with
@@ -339,11 +342,14 @@ class Captured(NamedTuple):
     stages: tuple          # obs.Timeline of each step captured, in order
 
 
-def capture_graph(fn, args, pool, warmup) -> Captured:
+def capture_graph(fn, args, pool, warmup, prepare=None) -> Captured:
     """`fn(*args)` captured as one CUDA graph in memory pool `pool`,
     PyTorch's recipe: `warmup()` first runs on a side stream (it creates
     the cuBLAS and cuSOLVER handles and loads the kernels; it must leave
-    `args` as they were; its steps record no stage events), then the
+    `args` as they were; its steps record no stage events), then
+    `prepare()`, if given, on the caller's stream (it makes what the
+    graph will read and write across replays, so that no such buffer
+    belongs to the side stream), then the
     capture, under the span `graph.capture` (counted in
     `graph.captures`). The outputs are the graph's own tensors, rewritten
     by each replay; launches recorded by the capture are taken off the
@@ -360,6 +366,8 @@ def capture_graph(fn, args, pool, warmup) -> Captured:
         with torch.cuda.stream(side), obs.quiet():
             warmup()
         main.wait_stream(side)
+        if prepare is not None:
+            prepare()
         before = [w.launches for w in WRAPPERS]
         graph = torch.cuda.CUDAGraph()
         with obs.capture() as stages, torch.cuda.graph(graph, pool=pool):
@@ -398,6 +406,7 @@ class _ScanGraph(NamedTuple):
     cap: Captured          # its outputs: the N outputs, stacked
     frames: Tensor         # [N, H, W] static input frames
     ts: Tensor             # [N] static timestamps
+    wins: Optional[ImuWindow]  # [N, ...] static IMU windows (VI graphs)
 
 
 class VOFrontend:
@@ -412,6 +421,7 @@ class VOFrontend:
         state, outs = fe.step_scan(state, frames, ts)
         state, out = fe.step_imu(state, frame, t, win)   # visual-inertial
         state, out = fe.step_imu_donated(state, frame, t, win)
+        state, outs = fe.step_scan(state, frames, ts, wins)
 
     `UsePallas` keeps its meaning: non-zero runs the fused detector
     (kernels/cuda_scale_space.py: the CUDA kernel on a CUDA device, its
@@ -434,8 +444,23 @@ class VOFrontend:
             f32 = dict(dtype=torch.float32, device=self.device)
             self._R01 = torch.as_tensor(np.asarray(R01, np.float32)).to(**f32)
             self._t01 = torch.as_tensor(np.asarray(t01, np.float32)).to(**f32)
-        # step_scan's CUDA graphs, one per (N, H, W); they all read and
-        # write one static state and share one memory pool
+        # visual-inertial (ImuMode): the camera-to-IMU extrinsics
+        # (CamImuSE3File, else identity), on the device from here on, so
+        # that a captured step_scan copies no host data
+        self.R_cam2imu = self.T_cam2imu = None
+        if params.ImuMode:
+            R, T = np.eye(3), np.zeros(3)
+            if params.CamImuSE3File:
+                from rebvo_tpu_torch.io.dataset import read_cam_imu_se3
+                R, T = read_cam_imu_se3(params.CamImuSE3File)
+            f32 = dict(dtype=torch.float32, device=self.device)
+            self.R_cam2imu = torch.as_tensor(np.asarray(R, np.float32)).to(
+                **f32)
+            self.T_cam2imu = torch.as_tensor(np.asarray(T, np.float32)).to(
+                **f32)
+        # step_scan's CUDA graphs, one per (N, H, W), and per (N, H, W, S)
+        # with IMU windows of S samples; they all read and write one
+        # static state and share one memory pool
         self._scan_graphs: Dict[tuple, _ScanGraph] = {}
         self._scan_state: Optional[VOState] = None
         self._scan_pool = None
@@ -1147,84 +1172,155 @@ class VOFrontend:
     # Chunked step (the counterpart of the JAX package's lax.scan)
     # ------------------------------------------------------------------
 
-    def step_scan(self, state: VOState, frames,
-                  ts) -> Tuple[VOState, FrameOutput]:
+    def step_scan(self, state: VOState, frames, ts,
+                  wins: Optional[ImuWindow] = None
+                  ) -> Tuple[VOState, FrameOutput]:
         """Advance over a chunk of frames ([N, H, W], timestamps [N]);
         returns the final state and the N per-frame outputs stacked on a
         leading axis, as lax.scan stacks them. Donates its input state
         like `step_donated`.
 
-        On a CUDA state the N steps are one CUDA graph, captured at the
-        first call for each (N, H, W) and replayed by every later call.
-        The frames and timestamps are copied into the graph's static
-        buffers, and a state other than the one the last call returned
-        into its static state. The state returned IS that static state,
-        so chained calls copy no state, and the next call overwrites it;
-        the outputs returned are copies. A capture that fails raises: a
-        CUDA state never runs the steps eagerly here. On a CPU state the
-        same N steps run in a Python loop. The call is one `obs.unit` of
-        N frames."""
-        with obs.unit(self, len(frames)):
-            return self._step_scan(state, frames, ts)
+        With `wins`, the N frames' IMU windows stacked on a leading axis
+        (gyro and accel [N, S, 3], count [N], tsample [N];
+        `frontend.imu.stack_windows`), each step is `step_imu_donated`
+        with the frontend's camera-to-IMU extrinsics (`R_cam2imu`,
+        `T_cam2imu`); a frontend without ImuMode refuses them. Windows
+        handed over on the host are counted (`obs`): `imu.samples`, the
+        valid samples, and `imu.truncated`, the windows filled to S (a
+        window packer keeps at most S samples, so every window it cut is
+        among them).
 
-    def _step_scan(self, state: VOState, frames, ts):
+        On a CUDA state the N steps are one CUDA graph, captured at the
+        first call for each (N, H, W), or (N, H, W, S) with windows, and
+        replayed by every later call. The frames, timestamps and windows
+        are copied into the graph's static buffers, and a state other
+        than the one the last call returned into its static state. The
+        state returned IS that static state, so chained calls copy no
+        state, and the next call overwrites it; the outputs returned are
+        copies. A capture that fails raises: a CUDA state never runs the
+        steps eagerly here. On a CPU state the same N steps run in a
+        Python loop. The call is one `obs.unit` of N frames."""
+        with obs.unit(self, len(frames)):
+            return self._step_scan(state, frames, ts, wins)
+
+    def _scan_windows(self, wins: ImuWindow, n: int) -> ImuWindow:
+        """step_scan's windows as tensors, checked and counted."""
+        if not self.params.ImuMode:
+            raise ValueError("step_scan: IMU windows given to a "
+                             "vision-only frontend (ImuMode=0)")
+        wins = ImuWindow(*[torch.as_tensor(x) for x in wins])
+        g = wins.gyro
+        if (g.ndim != 3 or tuple(g.shape[::2]) != (n, 3)
+                or wins.accel.shape != g.shape
+                or tuple(wins.count.shape) != (n,)
+                or tuple(wins.tsample.shape) != (n,)):
+            raise ValueError(
+                f"step_scan: windows must be gyro and accel [{n}, S, 3], "
+                f"count and tsample [{n}], got "
+                f"{[tuple(x.shape) for x in wins]}")
+        if wins.count.device.type == "cpu":
+            obs.count("imu.samples", int(wins.count.sum()))
+            obs.count("imu.truncated", int((wins.count >= g.shape[1]).sum()))
+        return wins
+
+    def _scan_step(self, state: VOState, frames: Tensor, ts: Tensor,
+                   wins: Optional[ImuWindow], i: int):
+        """Step i of a chunk: mono, or visual-inertial with window i."""
+        if wins is None:
+            return self.step_donated(state, frames[i], ts[i])
+        return self.step_imu_donated(state, frames[i], ts[i],
+                                     ImuWindow(*[x[i] for x in wins]),
+                                     self.R_cam2imu, self.T_cam2imu)
+
+    def _step_scan(self, state: VOState, frames, ts, wins):
         frames = self._frame(frames)
         ts = torch.as_tensor(ts, dtype=state.t.dtype).to(state.t.device)
         if frames.ndim != 3 or tuple(ts.shape) != tuple(frames.shape[:1]):
             raise ValueError(f"step_scan: frames must be [N, H, W] and ts "
                              f"[N], got {tuple(frames.shape)} and "
                              f"{tuple(ts.shape)}")
+        n = frames.shape[0]
+        if wins is not None:
+            wins = self._scan_windows(wins, n)
         if state.t.device.type == "cpu":
             outs = []
-            for i in range(frames.shape[0]):
-                state, out = self.step_donated(state, frames[i], ts[i])
+            for i in range(n):
+                state, out = self._scan_step(state, frames, ts, wins, i)
                 outs.append(out)
             return state, _stack_outputs(outs)
         if state.t.device.type != "cuda":
             raise ValueError(f"step_scan: unsupported device "
                              f"{state.t.device}")
-        g = self._scan_graphs.get(tuple(frames.shape))
+        key = tuple(frames.shape) + (
+            () if wins is None else (wins.gyro.shape[1], "imu"))
+        g = self._scan_graphs.get(key)
         if g is None:
-            g = self._capture_scan(state, frames, ts)
+            g = self._capture_scan(state, frames, ts, wins, key)
 
         def copy_in():
             g.frames.copy_(frames)
             g.ts.copy_(ts)
+            if wins is not None:
+                for dst, src in zip(g.wins, wins):
+                    dst.copy_(src)
             if state is not self._scan_state:
                 _copy_state_(self._scan_state, state)
 
         return self._scan_state, replay_graph(g.cap, copy_in)
 
-    def _capture_scan(self, state: VOState, frames: Tensor,
-                      ts: Tensor) -> _ScanGraph:
+    def _capture_scan(self, state: VOState, frames: Tensor, ts: Tensor,
+                      wins: Optional[ImuWindow], key: tuple) -> _ScanGraph:
         """Capture len(frames) donated steps from the static state as one
         CUDA graph (`capture_graph`): the warm-up runs two steps on a
         clone of `state`, so the caller's state does not advance; the
-        capture ends by copying the final state into the static one."""
+        capture ends by copying the final state into the static one.
+
+        The static state is made at the first capture, on the caller's
+        stream, with the memory layout of the state the warm-up's steps
+        leave: a step returns some leaves in another layout than the
+        initial state has (the VI filter's inverses, `imu.P7` and
+        `imu.W_Bg`, come back column-major), and a kernel baked for one
+        layout can round otherwise than the one an eager step picks for
+        the other, so the graph's first step reads its state as every
+        later step does."""
         if self._scan_state is None:
-            self._scan_state = tree_map(torch.clone, state)
             self._scan_pool = torch.cuda.graph_pool_handle()
-        static = self._scan_state
         frames_s, ts_s = frames.clone(), ts.clone()
+        wins_s = None if wins is None else tree_map(
+            lambda x: x.to(frames.device, copy=True), wins)
+        layout = []
 
         def warmup():
             st = tree_map(torch.clone, state)
             for i in range(min(2, frames.shape[0])):
-                st, _ = self.step_donated(st, frames_s[i], ts_s[i])
+                st, _ = self._scan_step(st, frames_s, ts_s, wins_s, i)
+            # a clone's layout, on the meta device: no memory
+            layout.append(tree_map(
+                lambda x: torch.empty_like(x, device="meta"), st))
+
+        def prepare():
+            if self._scan_state is None:
+                self._scan_state = tree_map(
+                    lambda m: torch.empty_strided(
+                        m.shape, m.stride(), dtype=m.dtype,
+                        device=frames.device), layout[0])
+                _copy_state_(self._scan_state, state)
 
         def steps():
+            static = self._scan_state
             st, outs = static, []
             for i in range(frames.shape[0]):
-                st, out = self.step_donated(st, frames_s[i], ts_s[i])
+                st, out = self._scan_step(st, frames_s, ts_s, wins_s, i)
                 outs.append(out)
             outs = _stack_outputs(outs)     # before the copy: an output
             _copy_state_(static, st)        # may be a static state leaf
             return outs
 
         with torch.cuda.device(frames.device):
-            cap = capture_graph(steps, (), self._scan_pool, warmup)
-        g = _ScanGraph(cap, frames_s, ts_s)
-        self._scan_graphs[tuple(frames.shape)] = g
+            cap = capture_graph(steps, (), self._scan_pool, warmup,
+                                prepare)
+        g = _ScanGraph(cap, frames_s, ts_s, wins_s)
+        self._scan_graphs[key] = g
         return g
 
     # ------------------------------------------------------------------
