@@ -24,6 +24,15 @@ Phases, each printing one JSON line; any failure exits non-zero:
                 each valid slot's two gathers an evaluation, at the card's
                 memory rate), its ptxas
                 resources and resident clusters, and its launch count;
+  3d. K3 3-dof — the solver's translation-only mode (minimizer_v) against
+                minimizer_v_plain on the card at 752x480, K=16384: the
+                minimizer_v calls of 16 visual-inertial steps on phase 10's
+                fixture (written first, here), the camera moving and the
+                scale filter running, each alone and the 16 as one vmapped
+                launch (m_id_f and the float32 bits of Vel and score equal,
+                RVel within a float32 ulp), device ms against the plain
+                version and the bound, ptxas resources, resident clusters,
+                launches;
   4. main     — the default-config mono path (752x480, KeylineMax=16384)
                 over 60 rendered frames, every step after the first under
                 torch.cuda.set_sync_debug_mode("error");
@@ -54,8 +63,9 @@ Phases, each printing one JSON line; any failure exits non-zero:
                 of step_scan's visual-inertial CUDA graph with N=8 under
                 set_sync_debug_mode("error"), against the same frames
                 stepped eagerly through step_imu_donated: state and
-                outputs bit for bit; K1 8 launches a replay, K3 none; one
-                capture, its host windows' samples counted and none cut;
+                outputs bit for bit; K1 and K3's 3-dof mode 8 launches a
+                replay, K3's 6-dof mode none; one capture, its host
+                windows' samples counted and none cut;
   10b. vi_profile — 2 more VI steps under torch.profiler, as phase 5
                 (spans vo.imu and vo.imu_filter included);
   10c. vi_run_vo — run_vo --euroc DIR --imu on the card against phase 10;
@@ -412,15 +422,18 @@ def compare(cand_k, cand_p):
     return mism, err, err_all
 
 
-def ptxas_resources(log):
+def ptxas_resources(log, key=None):
     """{"fixed" | "runtime": {registers, spill bytes, stack, static shared
-    bytes}} of each instantiation, from nvcc -Xptxas -v."""
+    bytes}} of each instantiation, from nvcc -Xptxas -v; `key(entry)`
+    names an entry function's record instead."""
     out, cur = {}, None
     for ln in log.splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", ln)
         if m:
-            cur = out.setdefault("fixed" if "ILb1E" in m.group(1)
-                                 else "runtime", {})
+            name = m.group(1)
+            cur = out.setdefault(key(name) if key else
+                                 "fixed" if "ILb1E" in name else "runtime",
+                                 {})
             continue
         if cur is None:
             continue
@@ -452,6 +465,8 @@ def kernel_resources(name, log):
 
 
 N_K3_LANES = 16
+N_K3V_LANES, K3V_FROM = 16, 13   # phase 3d: VI steps 13-28, the camera
+#                                  moving from 13, the filter from 15
 # K3 against its plain version: the fields whose float32 bits must agree,
 # and the ulps allowed elsewhere (float64 sums and solves in another order
 # round the other way near a float32 boundary; rel_error divides two norms)
@@ -470,18 +485,104 @@ def _ulps(a, b):
     return int(torch.where(nan, 0, d).max())
 
 
-def compare_pose(k, r):
-    """K3's MinimizerRVResult `k` against the plain version's `r`."""
+# the 3-dof mode (MinimizerVResult) likewise
+K3V_EXACT = ("Vel", "score")
+K3V_ULPS = {"RVel": 1}
+
+
+def k3_resource_key(entry):
+    """pose_lm_kernel<6> (minimizer_rv) or pose_lm_kernel<3>."""
+    return "6dof" if "ILi6E" in entry else "3dof"
+
+
+def compare_pose(k, r, exact=K3_EXACT, ulps=K3_ULPS):
+    """K3's result `k` against the plain version's `r`."""
     res = {"m_id_f_mismatch": int((k.m_id_f != r.m_id_f).sum()),
            "matched": int((r.m_id_f >= 0).sum())}
-    for f in K3_EXACT:
+    for f in exact:
         res[f"{f}_ulps"] = _ulps(getattr(k, f), getattr(r, f))
-    for f in K3_ULPS:
+    for f in ulps:
         res[f"{f}_ulps"] = _ulps(getattr(k, f), getattr(r, f))
     res["ok"] = (res["m_id_f_mismatch"] == 0
-                 and all(res[f"{f}_ulps"] == 0 for f in K3_EXACT)
-                 and all(res[f"{f}_ulps"] <= n for f, n in K3_ULPS.items()))
+                 and all(res[f"{f}_ulps"] == 0 for f in exact)
+                 and all(res[f"{f}_ulps"] <= n for f, n in ulps.items()))
     return res
+
+
+def k3_times(run_k, run_p, run_k16, run_p16):
+    """Device ms of one K3 mode and its plain version, in turns (plain,
+    kernel, kernel, plain; CUPTI, L2 flushed), for one lane and for 16
+    lanes in one vmapped call, and the wrapper call's ms."""
+    l2 = torch.empty(64 * 2 ** 20 // 4, dtype=torch.float32, device="cuda")
+    flush = l2.zero_
+    plain_a = device_ms(run_p, 5, flush)
+    k_a = device_ms(run_k, 50, flush)
+    k16_a = device_ms(run_k16, 20, flush)
+    k_b = device_ms(run_k, 50, flush)
+    k16_b = device_ms(run_k16, 20, flush)
+    plain_b = device_ms(run_p, 5, flush)
+    return {"kernel_ms": statistics.median([k_a, k_b]),
+            "kernel_ms_runs": [k_a, k_b],
+            "kernel_ms_16": statistics.median([k16_a, k16_b]),
+            "kernel_ms_16_runs": [k16_a, k16_b],
+            "plain_ms": statistics.median([plain_a, plain_b]),
+            "plain_ms_runs": [plain_a, plain_b],
+            "plain_ms_16": device_ms(run_p16, 3, flush),
+            "call_ms": time_cuda(run_k, 100, flush)}
+
+
+def k3_launch_config(mode, K):
+    """The shared bytes, threads and cluster of K3's `mode` ("pose_lm":
+    6 dof, "pose_v": 3) at K slots, and its resident clusters."""
+    lib = cuda_build.library("pose_lm")
+    intp = ctypes.POINTER(ctypes.c_int)
+    max_clusters = getattr(lib, f"{mode}_max_clusters")
+    max_clusters.argtypes = [ctypes.c_int, intp]
+    max_clusters.restype = ctypes.c_int
+    config = getattr(lib, f"{mode}_launch_config")
+    config.argtypes = [ctypes.c_int] + [intp] * 4
+    config.restype = None
+    cfg = [ctypes.c_int(0) for _ in range(4)]
+    config(K, *[ctypes.byref(c) for c in cfg])
+    nclu = ctypes.c_int(0)
+    err = max_clusters(K, ctypes.byref(nclu))
+    return {"smem_bytes": cfg[0].value, "threads": cfg[1].value,
+            "cluster": cfg[2].value, "max_active_clusters": nclu.value,
+            "max_active_clusters_err": err}
+
+
+def k3_bytes(K, valid, vote, n_eval):
+    """Bytes one K3 call must move at the least: the map's 9 fields
+    (valid a byte), the vote mask and m_id_f once, and in each of
+    `n_eval` evaluations each valid slot's two gathers (the field image's
+    entry, 6 floats of the matched keyline's row)."""
+    once = K * (1 + 8 * 4 + 4) + (0 if vote is None else K)
+    return once + n_eval * int(valid.sum()) * (4 + 6 * 4)
+
+
+def k3_line(phase, ok, cases, lanes16, launches, K, n_eval, bytes_call,
+            bytes16, valid_slots, times, info, mode, smi):
+    """Emit a K3 check line; returns the numbers of the kernel list."""
+    bw = H100_MEM_BYTES_PER_S
+    bound_ms, bound16_ms = bytes_call / bw * 1e3, bytes16 / bw * 1e3
+    res = ptxas_resources(info["pose_lm"]["ptxas"], k3_resource_key)
+    emit({"phase": phase, "ok": ok, "cases": cases, "lanes16": lanes16,
+          "launches": launches, "expected_launches": len(cases) + 1,
+          "K": K, "evaluations": n_eval, "bytes": bytes_call,
+          "valid_slots": valid_slots,
+          "bound_ms": bound_ms, "bound_ms_16": bound16_ms,
+          "bound_by": "bytes (latency-bound: 13 dependent rounds)",
+          **times, "x_bound": times["kernel_ms"] / bound_ms,
+          "x_bound_16": times["kernel_ms_16"] / bound16_ms,
+          "library_ms": None, "resources": res,
+          **k3_launch_config(mode, K), "card": smi,
+          "timing": "as k1_check; _16: 16 lanes in one vmapped call"})
+    return {**{k: times[k] for k in ("kernel_ms", "kernel_ms_16", "call_ms",
+                                     "plain_ms", "plain_ms_16")},
+            "bound_ms": bound_ms, "bound_ms_16": bound16_ms,
+            "x_bound": times["kernel_ms"] / bound_ms,
+            "resources": res.get("6dof" if mode == "pose_lm" else "3dof"),
+            "check_launches": launches}
 
 
 def k3_phase(smi, p, frames, info):
@@ -538,80 +639,96 @@ def k3_phase(smi, p, frames, info):
           and launches == N_K3_LANES + 1)
 
     Vel, W0, old, fv, kw = calls[-1]
-    l2 = torch.empty(64 * 2 ** 20 // 4, dtype=torch.float32, device=dev)
-    flush = l2.zero_
-
-    def run_k():
-        ps.minimizer_rv(Vel, W0, old, fv, **kw)
-
-    def run_p():
-        ps.minimizer_rv_plain(Vel, W0, old, fv, **kw)
-
-    # in turns: plain, kernel, kernel, plain (device ms, CUPTI)
-    plain_a = device_ms(run_p, 5, flush)
-    k_a = device_ms(run_k, 50, flush)
-    k16_a = device_ms(run_k16, 20, flush)
-    k_b = device_ms(run_k, 50, flush)
-    k16_b = device_ms(run_k16, 20, flush)
-    plain_b = device_ms(run_p, 5, flush)
-    plain16 = device_ms(run_p16, 3, flush)
-    call_ms = time_cuda(run_k, 100, flush)
+    times = k3_times(lambda: ps.minimizer_rv(Vel, W0, old, fv, **kw),
+                     lambda: ps.minimizer_rv_plain(Vel, W0, old, fv, **kw),
+                     run_k16, run_p16)
     K = old.valid.shape[-1]
     n_eval = 1 + (1 + kw["iter_max"])
     if kw["init_type"] not in (0, 1):
         n_eval += 5 * (1 + kw["init_iter"])
-
-    def k3_bytes(c):
-        """Bytes one call must move at the least: the map's 9 fields
-        (valid a byte), the vote mask and m_id_f once, and in each
-        evaluation each valid slot's two gathers (the field image's entry,
-        6 floats of the matched keyline's row)."""
-        v, vote = c[2].valid, c[4].get("vote_mask")
-        once = K * (1 + 8 * 4 + 4) + (0 if vote is None else K)
-        return once + n_eval * int(v.sum()) * (4 + 6 * 4)
-
-    bw = H100_MEM_BYTES_PER_S
-    bytes_call = k3_bytes(calls[-1])
-    bound_ms = bytes_call / bw * 1e3
-    bound16_ms = sum(k3_bytes(c) for c in calls) / bw * 1e3
-    kernel_ms = statistics.median([k_a, k_b])
-    kernel16_ms = statistics.median([k16_a, k16_b])
-    lib = cuda_build.library("pose_lm")
-    intp = ctypes.POINTER(ctypes.c_int)
-    lib.pose_lm_max_clusters.argtypes = [ctypes.c_int, intp]
-    lib.pose_lm_max_clusters.restype = ctypes.c_int
-    cfg = [ctypes.c_int(0) for _ in range(4)]
-    lib.pose_lm_launch_config.argtypes = [ctypes.c_int] + [intp] * 4
-    lib.pose_lm_launch_config.restype = None
-    lib.pose_lm_launch_config(K, *[ctypes.byref(c) for c in cfg])
-    nclu = ctypes.c_int(0)
-    err = lib.pose_lm_max_clusters(K, ctypes.byref(nclu))
-    emit({"phase": "k3_check", "ok": ok, "cases": cases, "lanes16": lanes16,
-          "launches": launches, "expected_launches": N_K3_LANES + 1,
-          "K": K, "evaluations": n_eval, "bytes": bytes_call,
-          "valid_slots": int(old.valid.sum()),
-          "bound_ms": bound_ms, "bound_ms_16": bound16_ms,
-          "bound_by": "bytes (latency-bound: 13 dependent rounds)",
-          "kernel_ms": kernel_ms,
-          "kernel_ms_runs": [k_a, k_b], "x_bound": kernel_ms / bound_ms,
-          "kernel_ms_16": kernel16_ms, "kernel_ms_16_runs": [k16_a, k16_b],
-          "x_bound_16": kernel16_ms / bound16_ms,
-          "plain_ms": statistics.median([plain_a, plain_b]),
-          "plain_ms_runs": [plain_a, plain_b], "plain_ms_16": plain16,
-          "call_ms": call_ms, "library_ms": None,
-          "resources": ptxas_resources(info["pose_lm"]["ptxas"]),
-          "smem_bytes": cfg[0].value, "threads": cfg[1].value,
-          "cluster": cfg[2].value, "max_active_clusters": nclu.value,
-          "max_active_clusters_err": err, "card": smi,
-          "timing": "as k1_check; _16: 16 lanes in one vmapped call"})
-    k3 = {"kernel_ms": kernel_ms, "kernel_ms_16": kernel16_ms,
-          "call_ms": call_ms,
-          "plain_ms": statistics.median([plain_a, plain_b]),
-          "plain_ms_16": plain16, "bound_ms": bound_ms,
-          "bound_ms_16": bound16_ms, "x_bound": kernel_ms / bound_ms,
-          "resources": ptxas_resources(info["pose_lm"]["ptxas"]),
-          "check_launches": launches}
+    bytes_of = [k3_bytes(K, c[2].valid, c[4].get("vote_mask"), n_eval)
+                for c in calls]
+    k3 = k3_line("k3_check", ok, cases, lanes16, launches, K, n_eval,
+                 bytes_of[-1], sum(bytes_of), int(old.valid.sum()), times,
+                 info, "pose_lm", smi)
     return k3, ok
+
+
+def k3v_phase(smi, vi_dir, info):
+    """Phase 3d (module docstring). Returns (the 3-dof mode's numbers for
+    the kernel list, ok)."""
+    from rebvo_tpu_torch.frontend import step as step_mod
+    from rebvo_tpu_torch.kernels import pose_solver as ps
+    dev = torch.device("cuda")
+    p = REBVOParameters().replace(ImuMode=2)
+    items = list(DatasetSequence.euroc(
+        vi_dir, with_imu=True, window_size=imu_window_size(p),
+        time_desinc=p.TimeDesinc))[:K3V_FROM + N_K3V_LANES]
+    fe = VOFrontend(p, device="cuda")
+    umap = build_undistort_map(fe.cam, device="cuda")
+    calls = []
+
+    def record(Vel, old, fv, **kw):
+        calls.append((Vel, ps.SolverMap(*(getattr(old, f) for f in
+                                              ps.SolverMap._fields)),
+                      fv, kw))
+        return ps.minimizer_v(Vel, old, fv, **kw)
+
+    def frame(i):
+        return apply_undistort(umap, torch.as_tensor(items[i][1],
+                                                     device=dev))
+    step_mod.minimizer_v, orig = record, step_mod.minimizer_v
+    try:
+        st = fe.bootstrap(fe.init(), frame(0), items[0][0])
+        for i in range(1, len(items)):
+            win = ImuWindow(*[x.cuda() for x in items[i][2]])
+            st, _ = fe.step_imu(st, frame(i), items[i][0], win)
+    finally:
+        step_mod.minimizer_v = orig
+    torch.cuda.synchronize()
+    calls = calls[K3V_FROM - 1:]
+    launches0 = ps.minimizer_v.launches
+    cases = [compare_pose(ps.minimizer_v(Vel, old, fv, **kw),
+                          ps.minimizer_v_plain(Vel, old, fv, **kw),
+                          K3V_EXACT, K3V_ULPS)
+             for Vel, old, fv, kw in calls]
+    # the 16 calls as 16 lanes of one vmapped call: one launch
+    per_lane = ("max_s_rho", "match_num_min", "min_mod", "vote_mask")
+    kw0 = {k: v for k, v in calls[0][3].items() if k not in per_lane}
+    lanes = [torch.stack(x) for x in zip(*[
+        (c[0], *c[1], c[2].ikl, c[2].attrs, c[3]["max_s_rho"],
+         c[3]["match_num_min"], c[3]["min_mod"]) for c in calls])]
+
+    def batched(solver):
+        def one(v, *rest):
+            f = rest[:len(ps.SolverMap._fields)]
+            ik, at, msr, mnm, mm = rest[len(f):]
+            return tuple(solver(v, ps.SolverMap(*f), ps.FieldView(ik, at),
+                                max_s_rho=msr, match_num_min=mnm,
+                                min_mod=mm, **kw0))
+        return lambda: torch.func.vmap(one)(*lanes)
+
+    run_k16, run_p16 = batched(ps.minimizer_v), batched(ps.minimizer_v_plain)
+    lanes16 = compare_pose(ps.MinimizerVResult(*run_k16()),
+                           ps.MinimizerVResult(*run_p16()), K3V_EXACT,
+                           K3V_ULPS)
+    launches = ps.minimizer_v.launches - launches0
+    ok = (all(c["ok"] for c in cases) and lanes16["ok"]
+          and launches == N_K3V_LANES + 1)
+
+    Vel, old, fv, kw = calls[-1]
+    times = k3_times(lambda: ps.minimizer_v(Vel, old, fv, **kw),
+                     lambda: ps.minimizer_v_plain(Vel, old, fv, **kw),
+                     run_k16, run_p16)
+    K = old.valid.shape[-1]
+    # the prior's, the start's and the 3 rungs' (1 + 2 each), the main run
+    n_eval = 1 + 4 * (1 + ps.V_LADDER_ITERS) + (1 + kw["iter_max"])
+    bytes_of = [k3_bytes(K, c[1].valid, c[3].get("vote_mask"), n_eval)
+                for c in calls]
+    k3v = k3_line("k3v_check", ok, cases, lanes16, launches, K, n_eval,
+                  bytes_of[-1], sum(bytes_of), int(old.valid.sum()), times,
+                  info, "pose_v", smi)
+    return k3v, ok
 
 
 def profile_steps(fe, state, frames, ts, step=None, extra=None,
@@ -697,6 +814,7 @@ def vi_path(smi, vi_dir, pos_true, write_s):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     zero_launches()
+    kc0 = obs.counters().get("pose_v.kernel", 0)
     state = fe.bootstrap(fe.init(), apply_undistort(umap, frames[0]), ts[0])
     outs, step_ms, und_ev, pre = [], [], [], {}
     for i in range(1, N_VI):
@@ -721,6 +839,9 @@ def vi_path(smi, vi_dir, pos_true, write_s):
         und_ev.append((a, b))
         outs.append(out)
     vi_launches = read_launches()
+    # K3's 3-dof mode: one launch a VI step, and its counter with it
+    k3v_main = (vi_launches["minimizer_v"],
+                obs.counters().get("pose_v.kernel", 0) - kc0)
     peak_mb = torch.cuda.max_memory_allocated() / 2 ** 20
     und_ms = statistics.median(a.elapsed_time(b) for a, b in und_ev)
     pos = np.stack([o.nav.Pos.cpu().numpy() for o in outs])
@@ -756,13 +877,17 @@ def vi_path(smi, vi_dir, pos_true, write_s):
             and k_in_band and k_settle <= VI_K_SETTLED
             and ate <= VI_ATE_SHAPE * extent
             and ate_metric <= VI_ATE_METRIC * extent
-            and VI_SCALE_BAND[0] < scale < VI_SCALE_BAND[1] and k1 == N_VI)
+            and VI_SCALE_BAND[0] < scale < VI_SCALE_BAND[1] and k1 == N_VI
+            and k3v_main == (N_VI - 1, N_VI - 1)
+            and vi_launches["minimizer_rv"] == 0)
     steady = step_ms[5:]
     np.savez(os.path.join(OUT, "vi_path.npz"), pos=pos, kl=kl, est=est,
              step_ms=step_ms, g=g, K=Ks, pos_true=pos_true)
     emit({"phase": "vi_main", "ok": ok10, "frames": N_VI,
           "launches": vi_launches, "k1_launches": k1,
-          "k1_launches_expected": N_VI, "kl_min": min(kl),
+          "k1_launches_expected": N_VI,
+          "k3v_launches_and_counter": list(k3v_main),
+          "k3v_launches_expected": N_VI - 1, "kl_min": min(kl),
           "kl_floor": KL_FLOOR, "est_ok_share_after_2": est_share,
           "g_est": g.tolist(), "g_norm": float(np.linalg.norm(g)),
           "g_dir": gn.tolist(), "g_dir_err": g_dir_err,
@@ -837,13 +962,20 @@ def vi_path(smi, vi_dir, pos_true, write_s):
     d_outs = differing(scan_outs, ref_outs)
     k1_per = scan_launches["detect_candidates_cuda"] / n_rep
     k3 = scan_launches["minimizer_rv"]
+    k3v_per = scan_launches["minimizer_v"] / n_rep
     samples = int(host_w[0].count.sum())      # the capture's windows
     counts = {"graph.captures": delta(c0, c1, "graph.captures"),
               "graph.replays": delta(c1, c2, "graph.replays"),
               "imu.samples": delta(c0, c1, "imu.samples"),
-              "imu.truncated": delta(c0, c1, "imu.truncated")}
+              "imu.truncated": delta(c0, c1, "imu.truncated"),
+              "pose_v.kernel": delta(c0, c1, "pose_v.kernel"),
+              "pose_v.kernel_replays": delta(c1, c2, "pose_v.kernel")}
+    # the capture counts the warm-up's two steps and the captured ones
     ok10e = (d_state == 0 and d_outs == 0 and k1_per == VI_SCAN_N
-             and k3 == 0 and counts["graph.captures"] == 1
+             and k3 == 0 and k3v_per == VI_SCAN_N
+             and counts["pose_v.kernel"] == 2 + VI_SCAN_N
+             and counts["pose_v.kernel_replays"] == 0
+             and counts["graph.captures"] == 1
              and counts["graph.replays"] == n_rep
              and counts["imu.samples"] == samples
              and counts["imu.truncated"] == 0)
@@ -853,6 +985,7 @@ def vi_path(smi, vi_dir, pos_true, write_s):
           "state_leaves_differing": d_state,
           "output_leaves_differing": d_outs, "launches": scan_launches,
           "k1_launches_per_replay": k1_per, "k3_launches": k3,
+          "k3v_launches_per_replay": k3v_per,
           "counters": counts, "imu_samples_expected": samples,
           "compare": "bit for bit, NaN equal to NaN", "card": smi})
     if not ok10e:
@@ -2161,6 +2294,13 @@ def main():
     if not ok3c:
         return 1
 
+    # ---- 3d. K3's 3-dof mode against its plain version, on phase 10's
+    # fixture ----------------------------------------------------------------
+    vi_dir, pos_true, write_s = write_fixture()
+    k3v, ok3d = k3v_phase(smi, vi_dir, info)
+    if not ok3d:
+        return 1
+
     # ---- 4. main path at full width -----------------------------------
     fe = VOFrontend(p, device="cuda")
     gpu_frames = torch.as_tensor(frames, device=dev)
@@ -2191,7 +2331,8 @@ def main():
     est_share = float(np.mean(est[2:]))
     ok4 = (bool(np.all(np.isfinite(pos))) and min(kl) >= KL_FLOOR
            and est_share >= 0.9 and launches == N_FRAMES
-           and main_launches["minimizer_rv"] == N_FRAMES - 1)
+           and main_launches["minimizer_rv"] == N_FRAMES - 1
+           and main_launches["minimizer_v"] == 0)
     steady = step_ms[5:]
     np.savez(os.path.join(OUT, "main_path.npz"), pos=pos, kl=kl, klm=klm,
              est=est, step_ms=step_ms)
@@ -2260,7 +2401,7 @@ def main():
         k1_per = got["detect_candidates_cuda"] / (N_SCAN // n)
         k3_per = got["minimizer_rv"] / (N_SCAN // n)
         ok_n = (skl == ref_kl and dpos <= tol4b and k1_per == n
-                and k3_per == n)
+                and k3_per == n and got["minimizer_v"] == 0)
         ok4b = ok4b and ok_n
         scan[f"n{n}"] = {"ok": ok_n, "replays": N_SCAN // n,
                          "ms_per_frame": ms, "kl_equal": skl == ref_kl,
@@ -2362,7 +2503,6 @@ def main():
         return 1
 
     # ---- 10-10d. the visual-inertial EuRoC path -------------------------
-    vi_dir, pos_true, write_s = write_fixture()
     vi_launches, ok10 = vi_path(smi, vi_dir, pos_true, write_s)
     if not ok10:
         return 1
@@ -2458,7 +2598,22 @@ def main():
             "vi_run_vo": vi_launches["vi_run_vo"]["minimizer_rv"],
             **{k: v["minimizer_rv"] for k, v in st_launches.items()},
             "vosystem": sys_launches["minimizer_rv"],
-            "batched": batched_launches["minimizer_rv"]}}]})
+            "batched": batched_launches["minimizer_rv"]}}, {
+        "name": "pose_lm (3-dof mode, pose_lm_kernel<3>)", "route": "cuda",
+        "source": "rebvo_tpu_torch/csrc/pose_lm.cu",
+        "replaces": None,
+        "replaces_function": "none: minimizer_v's PyTorch ops "
+                             "(kernels/pose_solver.minimizer_v_plain)",
+        "launches": vi_launches["vi_main"]["minimizer_v"], **k3v,
+        "ms": k3v["kernel_ms"], "bound_by": "bytes", "library_ms": None,
+        "launches_by_path": {
+            "main_path": main_launches["minimizer_v"],
+            "vi_main": vi_launches["vi_main"]["minimizer_v"],
+            "vi_scan_n8": vi_launches["vi_scan"]["minimizer_v"],
+            "vi_run_vo": vi_launches["vi_run_vo"]["minimizer_v"],
+            **{k: v["minimizer_v"] for k, v in st_launches.items()},
+            "vosystem": sys_launches["minimizer_v"],
+            "batched": batched_launches["minimizer_v"]}}]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,
                                  "count": torch.cuda.device_count()}})

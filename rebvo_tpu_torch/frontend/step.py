@@ -35,9 +35,9 @@ record of its host time in the ring of `obs`; the rest of the step (pose
 composition, nav row) is outside any span. `step_imu` adds `vo.imu` (IMU
 integration, gyro-bias init and the map's pre-rotation) and
 `vo.imu_filter` (ext_rot_vel, bias_correct and the scale/gravity
-filter); its `vo.pose` holds minimizer_v and the forward match. The
-spans run where the host runs the step's Python: eagerly, or once at a
-graph's capture. The device time of each stage comes from an
+filter); its `vo.pose` holds minimizer_v (on the card one launch of
+K3's 3-dof mode) and the forward match. The spans run where the host
+runs the step's Python: eagerly, or once at a graph's capture. The device time of each stage comes from an
 `obs.Timeline`: a CUDA event at the step's start, at each stage's end
 and at the step's end (the rest between stages is `vo.rest`), which a
 CUDA graph holds as event-record nodes, so every replay of `step_scan`

@@ -312,217 +312,8 @@ def minimizer_rv_plain(Vel: Tensor, W0: Tensor, old: KeylineMap,
         rel_error_score=rel_error_score)
 
 
-# ---------------------------------------------------------------------------
-# K3: the whole solver in one launch (csrc/pose_lm.cu)
-# ---------------------------------------------------------------------------
-
-
-class SolverMap(NamedTuple):
-    """The fields of the old KeylineMap that the solver reads."""
-
-    valid: Tensor
-    px: Tensor
-    py: Tensor
-    rho: Tensor
-    s_rho: Tensor
-    m_num: Tensor
-    gx: Tensor
-    gy: Tensor
-    n_m: Tensor
-
-
-# K3's inputs, in the order of the C launcher and the op: (name, dtype,
-# trailing shape, or None where it is the keyline count K)
-_INPUTS = (("Vel", torch.float32, (3,)), ("W0", torch.float32, (3,)),
-           ("valid", torch.bool, None), ("px", torch.float32, None),
-           ("py", torch.float32, None), ("rho", torch.float32, None),
-           ("s_rho", torch.float32, None), ("m_num", torch.int32, None),
-           ("gx", torch.float32, None), ("gy", torch.float32, None),
-           ("n_m", torch.float32, None), ("ikl", torch.int32, "HW"),
-           ("attrs", torch.float32, "K8"), ("max_s_rho", torch.float32, ()),
-           ("match_num_min", torch.int32, ()),
-           ("vote_mask", torch.bool, None))
-N_OUT = 63      # a lane's packed outputs (_unpack)
-
-_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-# pose_lm_launch: 16 inputs, the mid scratch, out, m_id_f; L, K, H, W,
-# iter_max, init_iter, init_type, recip_div; zfm, inv_zfm, cx, cy,
-# match_thresh, k, kk; stream
-K3_ARGTYPES = [_P] * 19 + [_I] * 8 + [_F] * 7 + [_P]
-
-
-def _unpack(packed: Tensor, m_id_f: Tensor) -> MinimizerRVResult:
-    """A [..., N_OUT] row of K3's outputs as MinimizerRVResult (views)."""
-    p = packed
-    return MinimizerRVResult(
-        Vel=p[..., 0:3], W0=p[..., 3:6],
-        RVel=p[..., 6:15].unflatten(-1, (3, 3)),
-        RW0=p[..., 15:24].unflatten(-1, (3, 3)),
-        W_X=p[..., 24:60].unflatten(-1, (6, 6)), m_id_f=m_id_f,
-        score=p[..., 60], rel_error=p[..., 61], rel_error_score=p[..., 62])
-
-
-def _pack(r: MinimizerRVResult) -> Tuple[Tensor, Tensor]:
-    return torch.cat([r.Vel, r.W0, r.RVel.reshape(-1), r.RW0.reshape(-1),
-                      r.W_X.reshape(-1), r.score.reshape(1),
-                      r.rel_error.reshape(1),
-                      r.rel_error_score.reshape(1)]), r.m_id_f
-
-
-def pose_launch(launch: Callable[..., int], tensors, stream, *, zfm: float,
-                cx: float, cy: float, width: int, height: int,
-                match_thresh: float, k_huber: float, iter_max: int,
-                init_iter: int, init_type: int) -> Tuple[Tensor, Tensor]:
-    """K3 through the C entry point `launch` (argument types K3_ARGTYPES)
-    on `tensors`, the inputs in _INPUTS' order, each with the same leading
-    lane axes (none for one lane; `vote_mask` may be None). Returns the
-    packed outputs [..., N_OUT] and m_id_f [..., K]; raises on an input
-    the kernel does not take, or if the launcher refuses.
-    `minimizer_rv` passes the card's entry point; the tests a host build
-    of the same source."""
-    Vel = tensors[0]
-    lanes = tuple(Vel.shape[:-1])
-    L = math.prod(lanes)
-    K = tensors[2].shape[-1] if tensors[2].ndim > len(lanes) else -1
-    HW = (height, width)
-    flat = []
-    for (name, dtype, tail), t in zip(_INPUTS, tensors):
-        if t is None and name == "vote_mask":
-            flat.append(None)
-            continue
-        tail = {None: (K,), "HW": HW, "K8": (K, 8)}.get(tail, tail)
-        if not isinstance(t, Tensor) or t.dtype != dtype:
-            raise TypeError(f"minimizer_rv: {name} must be a {dtype} tensor")
-        if t.device != Vel.device:
-            raise ValueError(f"minimizer_rv: {name} is on {t.device}, Vel "
-                             f"on {Vel.device}")
-        if tuple(t.shape) != lanes + tuple(tail):
-            raise ValueError(f"minimizer_rv: {name} has shape "
-                             f"{tuple(t.shape)}, expected "
-                             f"{lanes + tuple(tail)}")
-        flat.append(t.contiguous())
-    if K < 1 or L < 1:
-        raise ValueError(f"minimizer_rv: needs K >= 1 slots and a lane, "
-                         f"got K={K}, lanes {lanes}")
-    dev = Vel.device
-    mid = torch.empty((L, K), dtype=torch.int32, device=dev)
-    out = torch.empty(lanes + (N_OUT,), dtype=torch.float32, device=dev)
-    m_id_f = torch.empty(lanes + (K,), dtype=torch.int32, device=dev)
-    inv_zfm = float(np.float32(1.0) / np.float32(zfm))
-    err = launch(*[0 if t is None else t.data_ptr() for t in flat],
-                 mid.data_ptr(), out.data_ptr(),
-                 m_id_f.data_ptr(), L, K, height, width, iter_max,
-                 init_iter, init_type, int(dev.type == "cuda"), zfm,
-                 inv_zfm, cx, cy, match_thresh, k_huber, k_huber * k_huber,
-                 stream)
-    if err != 0:
-        raise RuntimeError(f"pose_lm kernel launch failed: cudaError {err}")
-    return out, m_id_f
-
-
-@functools.cache
-def _launcher():
-    """K3's C entry point, built and loaded at first use."""
-    fn = cuda_build.library("pose_lm").pose_lm_launch
-    fn.argtypes = K3_ARGTYPES
-    fn.restype = ctypes.c_int
-    return fn
-
-
-def _plain(tensors, **kw) -> Tuple[Tensor, Tensor]:
-    """The plain version on one lane's inputs (_INPUTS' order), packed."""
-    Vel, W0, *fields = tensors[:11]
-    ikl, attrs, max_s_rho, match_num_min, vote_mask = tensors[11:]
-    return _pack(minimizer_rv_plain(
-        Vel, W0, SolverMap(*fields), FieldView(ikl=ikl, attrs=attrs),
-        max_s_rho=max_s_rho, match_num_min=match_num_min,
-        vote_mask=vote_mask, **kw))
-
-
-@torch.library.custom_op("rebvo_tpu_torch::pose_lm", mutates_args=())
-def _pose_op(Vel: Tensor, W0: Tensor, valid: Tensor, px: Tensor,
-             py: Tensor, rho: Tensor, s_rho: Tensor, m_num: Tensor,
-             gx: Tensor, gy: Tensor, n_m: Tensor, ikl: Tensor,
-             attrs: Tensor, max_s_rho: Tensor, match_num_min: Tensor,
-             vote_mask: Optional[Tensor], zfm: float, cx: float, cy: float,
-             width: int, height: int, match_thresh: float, k_huber: float,
-             iter_max: int, init_iter: int, init_type: int
-             ) -> Tuple[Tensor, Tensor]:
-    """K3 on the CUDA device, its plain version on the CPU: the packed
-    outputs [..., N_OUT] and m_id_f [..., K] of every lane (leading axes
-    of Vel)."""
-    tensors = (Vel, W0, valid, px, py, rho, s_rho, m_num, gx, gy, n_m, ikl,
-               attrs, max_s_rho, match_num_min, vote_mask)
-    kw = dict(zfm=zfm, cx=cx, cy=cy, width=width, height=height,
-              match_thresh=match_thresh, k_huber=k_huber,
-              iter_max=iter_max, init_iter=init_iter, init_type=init_type)
-    if Vel.device.type == "cpu":
-        lanes = Vel.shape[:-1]
-        if not lanes:
-            return _plain(tensors, **kw)
-        flat = [None if t is None else t.reshape((-1,) + t.shape[len(lanes):])
-                for t in tensors]
-        outs = [_plain([None if t is None else t[i] for t in flat], **kw)
-                for i in range(flat[0].shape[0])]
-        return tuple(torch.stack(o).reshape(lanes + o[0].shape)
-                     for o in zip(*outs))
-    if Vel.device.type != "cuda":
-        raise ValueError(f"minimizer_rv: unsupported device {Vel.device}")
-    out = pose_launch(_launcher(), tensors,
-                      torch.cuda.current_stream(Vel.device).cuda_stream,
-                      **kw)
-    minimizer_rv.launches += 1
-    obs.count("pose.kernel")
-    return out
-
-
-@_pose_op.register_fake
-def _pose_fake(Vel, W0, valid, *rest):
-    lanes = Vel.shape[:-1]
-    return (Vel.new_empty(lanes + (N_OUT,)),
-            valid.new_empty(valid.shape, dtype=torch.int32))
-
-
-_N_TENSORS = len(_INPUTS)
-
-
-def _pose_vmap(info, in_dims, *args):
-    """vmap rule of K3: every lane's inputs in one call (one launch on the
-    card), an unbatched input expanded over the lanes."""
-    B = info.batch_size
-    ts = [t if t is None else (t.movedim(d, 0) if d is not None
-                               else t.expand((B,) + t.shape))
-          for t, d in zip(args[:_N_TENSORS], in_dims[:_N_TENSORS])]
-    return _pose_op(*ts, *args[_N_TENSORS:]), (0, 0)
-
-
-torch.library.register_vmap("rebvo_tpu_torch::pose_lm", _pose_vmap)
-
-
-def minimizer_rv(Vel: Tensor, W0: Tensor, old: KeylineMap, fv: FieldView,
-                 *, zfm: float, cx: float, cy: float, width: int,
-                 height: int, max_r=None, match_thresh: float,
-                 max_s_rho: Tensor, match_num_min: Tensor, k_huber: float,
-                 iter_max: int, init_iter: int, init_type: int = 2,
-                 vote_mask: Tensor = None) -> MinimizerRVResult:
-    """Levenberg-Marquardt over [V; W] (Minimizer_RV,
-    global_tracker.cpp:578-819), noise shaping frozen at the prior. On
-    CUDA tensors one launch of K3, which adds one to
-    `minimizer_rv.launches` and to the counter `pose.kernel`; on CPU
-    tensors its plain version, `minimizer_rv_plain`. `max_s_rho` and
-    `match_num_min` are 0-d tensors; the fields returned are views of one
-    packed row."""
-    packed, m_id_f = _pose_op(
-        Vel, W0, old.valid, old.px, old.py, old.rho, old.s_rho, old.m_num,
-        old.gx, old.gy, old.n_m, fv.ikl, fv.attrs,
-        max_s_rho.to(torch.float32), match_num_min.to(torch.int32),
-        vote_mask, float(zfm), float(cx), float(cy), int(width),
-        int(height), float(match_thresh), float(k_huber), int(iter_max),
-        int(init_iter), int(init_type))
-    return _unpack(packed, m_id_f)
-
-
-minimizer_rv.launches = 0
+# minimizer_v's warm start: its start and its rungs run 2 LM iterations
+V_LADDER_ITERS = 2
 
 
 class MinimizerVResult(NamedTuple):
@@ -532,14 +323,15 @@ class MinimizerVResult(NamedTuple):
     score: Tensor
 
 
-def minimizer_v(Vel: Tensor, old: KeylineMap, fv: FieldView, *,
-                zfm: float, cx: float, cy: float, width: int, height: int,
-                max_r=None, match_thresh: float, max_s_rho: Tensor,
-                match_num_min: Tensor, k_huber: float, min_mod: Tensor,
-                iter_max: int, vote_mask: Tensor = None
-                ) -> MinimizerVResult:
+def minimizer_v_plain(Vel: Tensor, old: KeylineMap, fv: FieldView, *,
+                      zfm: float, cx: float, cy: float, width: int,
+                      height: int, max_r=None, match_thresh: float,
+                      max_s_rho: Tensor, match_num_min: Tensor,
+                      k_huber: float, min_mod: Tensor, iter_max: int,
+                      vote_mask: Tensor = None) -> MinimizerVResult:
     """Translation-only LM (Minimizer_V / TryVel,
-    global_tracker.cpp:829-1093), restricted to the V block."""
+    global_tracker.cpp:829-1093), restricted to the V block: the plain
+    version of K3's 3-dof mode, in plain PyTorch ops."""
     tau = 1e-3
     kw = dict(zfm=zfm, cx=cx, cy=cy, width=width, height=height,
               match_thresh=match_thresh, max_s_rho=max_s_rho,
@@ -578,12 +370,294 @@ def minimizer_v(Vel: Tensor, old: KeylineMap, fv: FieldView, *,
             v = torch.where(acc, v_acc, v * 2.0)
         return V, F, JtJ, JtF, m_id_f
 
-    V0, F0_, *_ = lm_phase(Vel, 2)
+    V0, F0_, *_ = lm_phase(Vel, V_LADDER_ITERS)
     rungs = torch.stack([V0 * sc for sc in (2.0, 4.0, 8.0)])
-    Vr, Fr = lm_phase(rungs, 2)[:2]
+    Vr, Fr = lm_phase(rungs, V_LADDER_ITERS)[:2]
     rung_i = torch.argmin(Fr)
     take = _pick(Fr, rung_i) < 0.98 * F0_
     V = torch.where(take, _pick(Vr, rung_i), V0)
     V, F, JtJ, JtF, m_id_f = lm_phase(V, iter_max)
     RVel = _inv64(JtJ)
     return MinimizerVResult(Vel=V, RVel=RVel, m_id_f=m_id_f, score=F)
+
+
+# ---------------------------------------------------------------------------
+# K3: the whole solver in one launch (csrc/pose_lm.cu)
+# ---------------------------------------------------------------------------
+
+
+class SolverMap(NamedTuple):
+    """The fields of the old KeylineMap that the solver reads."""
+
+    valid: Tensor
+    px: Tensor
+    py: Tensor
+    rho: Tensor
+    s_rho: Tensor
+    m_num: Tensor
+    gx: Tensor
+    gy: Tensor
+    n_m: Tensor
+
+
+# K3's inputs, in the order of the C launchers and the op: (name, dtype,
+# trailing shape, or None where it is the keyline count K). `vote_mask` may
+# be None; the 6-dof mode (minimizer_rv) takes no min_mod, the 3-dof mode
+# (minimizer_v) no W0 (_ABSENT).
+_INPUTS = (("Vel", torch.float32, (3,)), ("W0", torch.float32, (3,)),
+           ("valid", torch.bool, None), ("px", torch.float32, None),
+           ("py", torch.float32, None), ("rho", torch.float32, None),
+           ("s_rho", torch.float32, None), ("m_num", torch.int32, None),
+           ("gx", torch.float32, None), ("gy", torch.float32, None),
+           ("n_m", torch.float32, None), ("ikl", torch.int32, "HW"),
+           ("attrs", torch.float32, "K8"), ("max_s_rho", torch.float32, ()),
+           ("match_num_min", torch.int32, ()),
+           ("vote_mask", torch.bool, None), ("min_mod", torch.float32, ()))
+_ABSENT = {6: "min_mod", 3: "W0"}
+_WRAPPER = {6: "minimizer_rv", 3: "minimizer_v"}
+N_OUT = 63      # a lane's packed outputs at 6 dof (_unpack)
+N_OUT_V = 13    # and at 3 dof (_unpack_v)
+_N_OUT = {6: N_OUT, 3: N_OUT_V}
+
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+# pose_lm_launch and pose_v_launch: 17 inputs, the mid scratch, out,
+# m_id_f; L, K, H, W, iter_max, init_iter, init_type, recip_div; zfm,
+# inv_zfm, cx, cy, match_thresh, k, kk; stream
+K3_ARGTYPES = [_P] * 20 + [_I] * 8 + [_F] * 7 + [_P]
+
+
+def _unpack(packed: Tensor, m_id_f: Tensor) -> MinimizerRVResult:
+    """A [..., N_OUT] row of K3's outputs as MinimizerRVResult (views)."""
+    p = packed
+    return MinimizerRVResult(
+        Vel=p[..., 0:3], W0=p[..., 3:6],
+        RVel=p[..., 6:15].unflatten(-1, (3, 3)),
+        RW0=p[..., 15:24].unflatten(-1, (3, 3)),
+        W_X=p[..., 24:60].unflatten(-1, (6, 6)), m_id_f=m_id_f,
+        score=p[..., 60], rel_error=p[..., 61], rel_error_score=p[..., 62])
+
+
+def _unpack_v(packed: Tensor, m_id_f: Tensor) -> MinimizerVResult:
+    """A [..., N_OUT_V] row of K3's 3-dof outputs as MinimizerVResult."""
+    p = packed
+    return MinimizerVResult(Vel=p[..., 0:3],
+                            RVel=p[..., 3:12].unflatten(-1, (3, 3)),
+                            m_id_f=m_id_f, score=p[..., 12])
+
+
+def _pack(r) -> Tuple[Tensor, Tensor]:
+    """A MinimizerRVResult or MinimizerVResult as K3 packs it."""
+    if isinstance(r, MinimizerVResult):
+        return torch.cat([r.Vel, r.RVel.reshape(-1),
+                          r.score.reshape(1)]), r.m_id_f
+    return torch.cat([r.Vel, r.W0, r.RVel.reshape(-1), r.RW0.reshape(-1),
+                      r.W_X.reshape(-1), r.score.reshape(1),
+                      r.rel_error.reshape(1),
+                      r.rel_error_score.reshape(1)]), r.m_id_f
+
+
+def pose_launch(launch: Callable[..., int], tensors, stream, *, dof: int,
+                zfm: float, cx: float, cy: float, width: int, height: int,
+                match_thresh: float, k_huber: float, iter_max: int,
+                init_iter: int, init_type: int) -> Tuple[Tensor, Tensor]:
+    """K3 in its `dof`-degree mode (6: minimizer_rv, 3: minimizer_v)
+    through that mode's C entry point `launch` (argument types
+    K3_ARGTYPES) on `tensors`, the inputs in _INPUTS' order, each with the
+    same leading lane axes (none for one lane; `vote_mask` may be None,
+    the mode's absent input must be). Returns the packed outputs
+    [..., N_OUT or N_OUT_V] and m_id_f [..., K]; raises on an input the
+    kernel does not take, or if the launcher refuses. The wrappers pass
+    the card's entry points; the tests a host build of the same source."""
+    if dof not in _N_OUT:
+        raise ValueError(f"pose_launch: dof is 6 or 3, got {dof}")
+    who = _WRAPPER[dof]
+    if len(tensors) != len(_INPUTS):
+        raise ValueError(f"{who}: takes {len(_INPUTS)} inputs, got "
+                         f"{len(tensors)}")
+    Vel = tensors[0]
+    lanes = tuple(Vel.shape[:-1])
+    L = math.prod(lanes)
+    K = tensors[2].shape[-1] if tensors[2].ndim > len(lanes) else -1
+    HW = (height, width)
+    flat = []
+    for (name, dtype, tail), t in zip(_INPUTS, tensors):
+        if name == _ABSENT[dof]:
+            if t is not None:
+                raise ValueError(f"{who}: takes no {name}")
+            flat.append(None)
+            continue
+        if t is None and name == "vote_mask":
+            flat.append(None)
+            continue
+        tail = {None: (K,), "HW": HW, "K8": (K, 8)}.get(tail, tail)
+        if not isinstance(t, Tensor) or t.dtype != dtype:
+            raise TypeError(f"{who}: {name} must be a {dtype} tensor")
+        if t.device != Vel.device:
+            raise ValueError(f"{who}: {name} is on {t.device}, Vel on "
+                             f"{Vel.device}")
+        if tuple(t.shape) != lanes + tuple(tail):
+            raise ValueError(f"{who}: {name} has shape {tuple(t.shape)}, "
+                             f"expected {lanes + tuple(tail)}")
+        flat.append(t.contiguous())
+    if K < 1 or L < 1:
+        raise ValueError(f"{who}: needs K >= 1 slots and a lane, got "
+                         f"K={K}, lanes {lanes}")
+    dev = Vel.device
+    mid = torch.empty((L, K), dtype=torch.int32, device=dev)
+    out = torch.empty(lanes + (_N_OUT[dof],), dtype=torch.float32,
+                      device=dev)
+    m_id_f = torch.empty(lanes + (K,), dtype=torch.int32, device=dev)
+    inv_zfm = float(np.float32(1.0) / np.float32(zfm))
+    err = launch(*[0 if t is None else t.data_ptr() for t in flat],
+                 mid.data_ptr(), out.data_ptr(),
+                 m_id_f.data_ptr(), L, K, height, width, iter_max,
+                 init_iter, init_type, int(dev.type == "cuda"), zfm,
+                 inv_zfm, cx, cy, match_thresh, k_huber, k_huber * k_huber,
+                 stream)
+    if err != 0:
+        raise RuntimeError(f"pose_lm kernel launch failed: cudaError {err}")
+    return out, m_id_f
+
+
+@functools.cache
+def _launcher(dof: int):
+    """The C entry point of K3's `dof`-degree mode, built and loaded at
+    first use."""
+    lib = cuda_build.library("pose_lm")
+    fn = lib.pose_lm_launch if dof == 6 else lib.pose_v_launch
+    fn.argtypes = K3_ARGTYPES
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def _plain(tensors, dof: int, **kw) -> Tuple[Tensor, Tensor]:
+    """The plain version of the `dof`-degree mode on one lane's inputs
+    (_INPUTS' order), packed."""
+    Vel, W0, *fields = tensors[:11]
+    ikl, attrs, max_s_rho, match_num_min, vote_mask, min_mod = tensors[11:]
+    args = (SolverMap(*fields), FieldView(ikl=ikl, attrs=attrs))
+    common = dict(max_s_rho=max_s_rho, match_num_min=match_num_min,
+                  vote_mask=vote_mask)
+    if dof == 6:
+        return _pack(minimizer_rv_plain(Vel, W0, *args, **common, **kw))
+    kw = {k: v for k, v in kw.items() if k not in ("init_iter", "init_type")}
+    return _pack(minimizer_v_plain(Vel, *args, min_mod=min_mod, **common,
+                                   **kw))
+
+
+@torch.library.custom_op("rebvo_tpu_torch::pose_lm", mutates_args=())
+def _pose_op(Vel: Tensor, W0: Optional[Tensor], valid: Tensor, px: Tensor,
+             py: Tensor, rho: Tensor, s_rho: Tensor, m_num: Tensor,
+             gx: Tensor, gy: Tensor, n_m: Tensor, ikl: Tensor,
+             attrs: Tensor, max_s_rho: Tensor, match_num_min: Tensor,
+             vote_mask: Optional[Tensor], min_mod: Optional[Tensor],
+             zfm: float, cx: float, cy: float, width: int, height: int,
+             match_thresh: float, k_huber: float, iter_max: int,
+             init_iter: int, init_type: int, dof: int
+             ) -> Tuple[Tensor, Tensor]:
+    """K3 in its `dof`-degree mode on the CUDA device, that mode's plain
+    version on the CPU: the packed outputs [..., N_OUT or N_OUT_V] and
+    m_id_f [..., K] of every lane (leading axes of Vel)."""
+    tensors = (Vel, W0, valid, px, py, rho, s_rho, m_num, gx, gy, n_m, ikl,
+               attrs, max_s_rho, match_num_min, vote_mask, min_mod)
+    kw = dict(zfm=zfm, cx=cx, cy=cy, width=width, height=height,
+              match_thresh=match_thresh, k_huber=k_huber,
+              iter_max=iter_max, init_iter=init_iter, init_type=init_type)
+    if Vel.device.type == "cpu":
+        lanes = Vel.shape[:-1]
+        if not lanes:
+            return _plain(tensors, dof, **kw)
+        flat = [None if t is None else t.reshape((-1,) + t.shape[len(lanes):])
+                for t in tensors]
+        outs = [_plain([None if t is None else t[i] for t in flat], dof,
+                       **kw)
+                for i in range(flat[0].shape[0])]
+        return tuple(torch.stack(o).reshape(lanes + o[0].shape)
+                     for o in zip(*outs))
+    if Vel.device.type != "cuda":
+        raise ValueError(f"{_WRAPPER[dof]}: unsupported device {Vel.device}")
+    out = pose_launch(_launcher(dof), tensors,
+                      torch.cuda.current_stream(Vel.device).cuda_stream,
+                      dof=dof, **kw)
+    if dof == 6:
+        minimizer_rv.launches += 1
+        obs.count("pose.kernel")
+    else:
+        minimizer_v.launches += 1
+        obs.count("pose_v.kernel")
+    return out
+
+
+@_pose_op.register_fake
+def _pose_fake(Vel, W0, valid, *rest):
+    lanes = Vel.shape[:-1]
+    return (Vel.new_empty(lanes + (_N_OUT[rest[-1]],)),
+            valid.new_empty(valid.shape, dtype=torch.int32))
+
+
+_N_TENSORS = len(_INPUTS)
+
+
+def _pose_vmap(info, in_dims, *args):
+    """vmap rule of K3: every lane's inputs in one call (one launch on the
+    card), an unbatched input expanded over the lanes."""
+    B = info.batch_size
+    ts = [t if t is None else (t.movedim(d, 0) if d is not None
+                               else t.expand((B,) + t.shape))
+          for t, d in zip(args[:_N_TENSORS], in_dims[:_N_TENSORS])]
+    return _pose_op(*ts, *args[_N_TENSORS:]), (0, 0)
+
+
+torch.library.register_vmap("rebvo_tpu_torch::pose_lm", _pose_vmap)
+
+
+def minimizer_rv(Vel: Tensor, W0: Tensor, old: KeylineMap, fv: FieldView,
+                 *, zfm: float, cx: float, cy: float, width: int,
+                 height: int, max_r=None, match_thresh: float,
+                 max_s_rho: Tensor, match_num_min: Tensor, k_huber: float,
+                 iter_max: int, init_iter: int, init_type: int = 2,
+                 vote_mask: Tensor = None) -> MinimizerRVResult:
+    """Levenberg-Marquardt over [V; W] (Minimizer_RV,
+    global_tracker.cpp:578-819), noise shaping frozen at the prior. On
+    CUDA tensors one launch of K3, which adds one to
+    `minimizer_rv.launches` and to the counter `pose.kernel`; on CPU
+    tensors its plain version, `minimizer_rv_plain`. `max_s_rho` and
+    `match_num_min` are 0-d tensors; the fields returned are views of one
+    packed row."""
+    packed, m_id_f = _pose_op(
+        Vel, W0, old.valid, old.px, old.py, old.rho, old.s_rho, old.m_num,
+        old.gx, old.gy, old.n_m, fv.ikl, fv.attrs,
+        max_s_rho.to(torch.float32), match_num_min.to(torch.int32),
+        vote_mask, None, float(zfm), float(cx), float(cy), int(width),
+        int(height), float(match_thresh), float(k_huber), int(iter_max),
+        int(init_iter), int(init_type), 6)
+    return _unpack(packed, m_id_f)
+
+
+minimizer_rv.launches = 0
+
+
+def minimizer_v(Vel: Tensor, old: KeylineMap, fv: FieldView, *,
+                zfm: float, cx: float, cy: float, width: int, height: int,
+                max_r=None, match_thresh: float, max_s_rho: Tensor,
+                match_num_min: Tensor, k_huber: float, min_mod: Tensor,
+                iter_max: int, vote_mask: Tensor = None
+                ) -> MinimizerVResult:
+    """Translation-only LM (Minimizer_V / TryVel,
+    global_tracker.cpp:829-1093), restricted to the V block. On CUDA
+    tensors one launch of K3 in its 3-dof mode, which adds one to
+    `minimizer_v.launches` and to the counter `pose_v.kernel`; on CPU
+    tensors its plain version, `minimizer_v_plain`. `max_s_rho`,
+    `match_num_min` and `min_mod` are 0-d tensors; the fields returned are
+    views of one packed row."""
+    packed, m_id_f = _pose_op(
+        Vel, None, old.valid, old.px, old.py, old.rho, old.s_rho, old.m_num,
+        old.gx, old.gy, old.n_m, fv.ikl, fv.attrs,
+        max_s_rho.to(torch.float32), match_num_min.to(torch.int32),
+        vote_mask, min_mod.to(torch.float32), float(zfm), float(cx),
+        float(cy), int(width), int(height), float(match_thresh),
+        float(k_huber), int(iter_max), V_LADDER_ITERS, 2, 3)
+    return _unpack_v(packed, m_id_f)
+
+
+minimizer_v.launches = 0

@@ -146,7 +146,8 @@ def test_evaluate_sequence_matches_jax(tmp_path, small_cam, monkeypatch):
     # CPU run: no kernel launched
     assert rt["repo_kernel_launches"] == {"detect_candidates_cuda": 0,
                                           "build_scale_space_cuda": 0,
-                                          "minimizer_rv": 0}
+                                          "minimizer_rv": 0,
+                                          "minimizer_v": 0}
 
 
 def test_run_repo_without_cuda_fails(tmp_path, small_cam):

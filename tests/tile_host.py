@@ -57,8 +57,9 @@ def library() -> ctypes.CDLL:
     lib.detect_candidates_launch.argtypes = cs.K1_ARGTYPES
     lib.build_scale_space_launch.argtypes = cs.K2_ARGTYPES
     lib.pose_lm_launch.argtypes = ps.K3_ARGTYPES
+    lib.pose_v_launch.argtypes = ps.K3_ARGTYPES
     for fn in (lib.detect_candidates_launch, lib.build_scale_space_launch,
-               lib.pose_lm_launch, lib.tile_reciprocals,
+               lib.pose_lm_launch, lib.pose_v_launch, lib.tile_reciprocals,
                lib.tile_table_shape):
         fn.restype = ctypes.c_int
     return lib
@@ -76,7 +77,10 @@ def sspace(img, sigma0, k_sigma):
                             sigma0, k_sigma)
 
 
-def pose(tensors, **kw):
+def pose(tensors, dof=6, **kw):
     """K3's host build on CPU inputs (pose_solver._INPUTS' order), as the
-    card's `minimizer_rv`: the packed outputs and m_id_f."""
-    return ps.pose_launch(library().pose_lm_launch, tensors, None, **kw)
+    card's `minimizer_rv` (dof 6) or `minimizer_v` (dof 3): the packed
+    outputs and m_id_f."""
+    lib = library()
+    launch = lib.pose_lm_launch if dof == 6 else lib.pose_v_launch
+    return ps.pose_launch(launch, tensors, None, dof=dof, **kw)
