@@ -170,7 +170,8 @@ import rebvo_tpu_torch  # noqa: F401  (sets the package's numerics flags)
 from rebvo_tpu_torch.config import REBVOParameters, save_config
 from rebvo_tpu_torch import obs
 from rebvo_tpu_torch.frontend.imu import ImuWindow, stack_windows
-from rebvo_tpu_torch.frontend.step import VOFrontend, tree_leaves
+from rebvo_tpu_torch.frontend.step import VOFrontend
+from rebvo_tpu_torch.graphs import tree_leaves
 from rebvo_tpu_torch.io.dataset import DatasetSequence, imu_window_size
 from rebvo_tpu_torch.io.render import render_lateral, write_euroc_vi
 from rebvo_tpu_torch.io.trajectory import align_umeyama, ate_rmse
@@ -1784,7 +1785,6 @@ def m13_phase(smi, p, gpu_frames, ts):
 
     from rebvo_tpu_torch.apps import run_vo, visualizer
     from rebvo_tpu_torch.backend import surface
-    from rebvo_tpu_torch.frontend.step import tree_leaves
     from rebvo_tpu_torch.io import native, telemetry
     from rebvo_tpu_torch.io.telemetry import EdgeMapReceiver, EdgeMapSender
     from rebvo_tpu_torch.io.video import _to_u8, read_video_stream

@@ -80,6 +80,7 @@ def interactive_loop(params, seq, out_dir: str, max_frames: int = 0,
     (app/rebvorun/main.cpp:92-140) bound to the VOSystem API: stdin
     commands are applied between frames. Returns the VOSystem."""
     import queue
+    import select
     import threading
 
     import numpy as np
@@ -95,6 +96,10 @@ def interactive_loop(params, seq, out_dir: str, max_frames: int = 0,
             for ch in line.strip():
                 cmds.put(ch)
 
+    # a command already waiting on stdin applies before the first frame
+    if select.select([sys.stdin], [], [], 0)[0]:
+        for ch in sys.stdin.readline().strip():
+            cmds.put(ch)
     threading.Thread(target=reader, daemon=True).start()
     print(_HELP_KEYS, flush=True)
 

@@ -65,7 +65,8 @@ the JAX package's.
 
 from __future__ import annotations
 
-from typing import Dict, NamedTuple, Optional, Tuple
+from collections import namedtuple
+from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -84,6 +85,9 @@ from rebvo_tpu_torch.frontend.imu import (ImuWindow, ScaleWindows,
 from rebvo_tpu_torch.frontend.kf_tracking import KFCarry, track_keyframe
 from rebvo_tpu_torch.frontend.state import (BIG, RHO_INIT, RHO_MAX, RHO_MIN,
                                             KeylineMap, NavData, select_map)
+# tree_map and tree_leaves are re-exported: callers of this module use them
+from rebvo_tpu_torch.graphs import (GraphCache, copy_tree_,  # noqa: F401
+                                    stack_trees, tree_leaves, tree_map)
 from rebvo_tpu_torch.kernels.depth_filter import (depth_ekf,
                                                   estimate_quantile,
                                                   estimate_rescaling_opt,
@@ -181,43 +185,6 @@ class FrameOutput(NamedTuple):
     Kp: Tensor             # per-frame rescaling ratio
     RKp: Tensor            # its variance estimate
     imu_dbg: Tensor        # [len(IMU_DBG_ROWS), 3] (zeros in mono)
-
-
-def tree_leaves(tree) -> list:
-    """The leaves of a nest of tuples, NamedTuples and lists, in order
-    (anything else is a leaf)."""
-    if isinstance(tree, (tuple, list)):
-        return [leaf for sub in tree for leaf in tree_leaves(sub)]
-    return [tree]
-
-
-def tree_map(fn, *trees):
-    """fn over the leaves of nests of tuples, NamedTuples and lists of
-    one structure."""
-    t = trees[0]
-    if not isinstance(t, (tuple, list)):
-        return fn(*trees)
-    subs = [tree_map(fn, *xs) for xs in zip(*trees)]
-    return type(t)(*subs) if hasattr(t, "_fields") else type(t)(subs)
-
-
-def _stack_outputs(outs) -> "FrameOutput":
-    """Per-frame outputs stacked on a leading axis, as lax.scan stacks
-    them."""
-    return tree_map(lambda *xs: torch.stack(xs), *outs)
-
-
-def _copy_state_(dst, src) -> None:
-    """Copy every leaf of `src` into the same leaf of `dst`. A source leaf
-    that shares storage with another destination leaf is cloned first,
-    so no copy reads a buffer that an earlier copy has overwritten."""
-    pairs = [(d, x) for d, x in zip(tree_leaves(dst), tree_leaves(src))
-             if d is not x]
-    dst_mem = {d.untyped_storage().data_ptr() for d, _ in pairs}
-    pairs = [(d, x.clone() if x.untyped_storage().data_ptr() in dst_mem
-              else x) for d, x in pairs]
-    for d, x in pairs:
-        d.copy_(x)
 
 
 def pack_nav_row(out: FrameOutput) -> Tensor:
@@ -333,96 +300,43 @@ def init_state(params: REBVOParameters, dtype=torch.float32,
     )
 
 
-class Captured(NamedTuple):
-    """A CUDA graph of `capture_graph`."""
-
-    graph: "torch.cuda.CUDAGraph"
-    outs: object           # the graph's outputs, rewritten by each replay
-    launches: tuple        # (kernel wrapper, its launches per replay)
-    stages: tuple          # obs.Timeline of each step captured, in order
-
-
-def capture_graph(fn, args, pool, warmup, prepare=None) -> Captured:
-    """`fn(*args)` captured as one CUDA graph in memory pool `pool`,
-    PyTorch's recipe: `warmup()` first runs on a side stream (it creates
-    the cuBLAS and cuSOLVER handles and loads the kernels; it must leave
-    `args` as they were; its steps record no stage events), then
-    `prepare()`, if given, on the caller's stream (it makes what the
-    graph will read and write across replays, so that no such buffer
-    belongs to the side stream), then the
-    capture, under the span `graph.capture` (counted in
-    `graph.captures`). The outputs are the graph's own tensors, rewritten
-    by each replay; launches recorded by the capture are taken off the
-    kernel wrappers' counts and listed as (wrapper, launches per replay)
-    for `replay_graph` to add back; each captured step's stage events are
-    nodes of the graph (`obs.Timeline`). Used by `VOFrontend.step_scan`
-    and `parallel.mesh.shard_sequences`."""
-    from rebvo_tpu_torch.kernels.registry import WRAPPERS
-    with obs.span("graph.capture"):
-        dev = torch.cuda.current_device()
-        main = torch.cuda.current_stream(dev)
-        side = torch.cuda.Stream(device=dev)
-        side.wait_stream(main)
-        with torch.cuda.stream(side), obs.quiet():
-            warmup()
-        main.wait_stream(side)
-        if prepare is not None:
-            prepare()
-        before = [w.launches for w in WRAPPERS]
-        graph = torch.cuda.CUDAGraph()
-        with obs.capture() as stages, torch.cuda.graph(graph, pool=pool):
-            outs = fn(*args)
-        launches = []
-        for w, n0 in zip(WRAPPERS, before):
-            launches.append((w, w.launches - n0))
-            w.launches = n0
-    obs.count("graph.captures")
-    return Captured(graph, outs, tuple(launches), tuple(stages))
+# `VOFrontend._front`'s results: the stage `vo.front`'s (the frame's
+# keylines, their detection mask and threshold carry, the old map's depth
+# quantile s_rho_q, the match field) and the cam1 frame's detection
+# (stereo: its (klm1, mask1), None without one; its threshold carry)
+_Front = namedtuple("_Front", "klm mask_img kl_num thresh retuned s_rho_q fv "
+                    "field_img stereo thresh_pair kl_num_pair")
+# `VOFrontend._tail`'s results: the frame's map, matched and filtered, its
+# scale bookkeeping, and gauge_div, this frame's re-gauge of its depths
+_Tail = namedtuple("_Tail", "klm klm_num est_ok Kp Kp_gauge P_Kp V_out "
+                   "stereo_num gauge_div VScaleC aR aV aAge")
 
 
-def replay_graph(g: Captured, copy_in):
-    """One call of a graph of `capture_graph`, inside the caller's
-    `obs.unit`, in three spans: `copy_in()` (the inputs copied into the
-    graph's static buffers) under `graph.copy_in`, the replay under
-    `graph.replay` (counted in `graph.replays`, with the graph's kernel
-    launches), and clones of the outputs, returned, under
-    `graph.clone_out`. The captured steps' stage times are read when the
-    next unit opens (`obs.replayed`)."""
-    with obs.span("graph.copy_in"):
-        copy_in()
-    with obs.span("graph.replay"):
-        g.graph.replay()
-        for w, n in g.launches:
-            w.launches += n
-        obs.count("graph.replays")
-    obs.replayed(g.stages)
-    with obs.span("graph.clone_out"):
-        return tree_map(torch.clone, g.outs)
+class _Stages(NamedTuple):
+    """A step body's results (`VOFrontend._mono`, `_vi`), the input of
+    the frame skeleton's keyframe block and outputs. The last three are
+    the VI filter's, None in a mono step."""
 
-
-class _ScanGraph(NamedTuple):
-    """One chunk of N steps captured as a CUDA graph (VOFrontend.step_scan)."""
-
-    cap: Captured          # its outputs: the N outputs, stacked
-    frames: Tensor         # [N, H, W] static input frames
-    ts: Tensor             # [N] static timestamps
-    wins: Optional[ImuWindow]  # [N, ...] static IMU windows (VI graphs)
+    front: _Front
+    tail: _Tail
+    R: Tensor              # the frame's rotation
+    W0: Tensor             # the next frame's warm-start rotation
+    nan_fail: Tensor
+    W_X: Tensor            # pose-estimator information, before nan_fail
+    score: Tensor
+    rel_error: Optional[Tensor]
+    K_scale: Tensor
+    G_gauge: Tensor
+    Pose: Tensor           # before the keyframe block
+    Pos: Tensor
+    g: Optional[Tensor] = None           # gravity estimate
+    imu: Optional[ImuCarry] = None       # Vg before the re-gauge
+    imu_dbg: Optional[tuple] = None      # rows in IMU_DBG_ROWS order
 
 
 class VOFrontend:
     """Binds the static configuration and the device; exposes the mono
-    and visual-inertial steps.
-
-        fe = VOFrontend(params)                # device="cuda"
-        state = fe.init()
-        state = fe.bootstrap(state, frame0, t0)   # detection only
-        state, out = fe.step(state, frame, t)     # vision-only
-        state, out = fe.step_donated(state, frame, t)
-        state, outs = fe.step_scan(state, frames, ts)
-        state, out = fe.step_imu(state, frame, t, win)   # visual-inertial
-        state, out = fe.step_imu_donated(state, frame, t, win)
-        state, outs = fe.step_scan(state, frames, ts, wins)
-
+    and visual-inertial steps (the module docstring shows their calls).
     `UsePallas` keeps its meaning: non-zero runs the fused detector
     (kernels/cuda_scale_space.py: the CUDA kernel on a CUDA device, its
     plain version on the CPU), 0 the separate scale_space + edge_detect
@@ -459,11 +373,8 @@ class VOFrontend:
             self.T_cam2imu = torch.as_tensor(np.asarray(T, np.float32)).to(
                 **f32)
         # step_scan's CUDA graphs, one per (N, H, W), and per (N, H, W, S)
-        # with IMU windows of S samples; they all read and write one
-        # static state and share one memory pool
-        self._scan_graphs: Dict[tuple, _ScanGraph] = {}
-        self._scan_state: Optional[VOState] = None
-        self._scan_pool = None
+        # with IMU windows of S samples; they all carry one static state
+        self._graphs = GraphCache()
         # frame ids of the units this frontend opens (rebvo_tpu_torch.obs)
         self.frame_id = 0
 
@@ -473,9 +384,6 @@ class VOFrontend:
     def _frame(self, frame) -> Tensor:
         return torch.as_tensor(frame).to(
             device=self.device, dtype=torch.float32).contiguous()
-
-    def _window(self, win: ImuWindow) -> ImuWindow:
-        return ImuWindow(*[torch.as_tensor(x).to(self.device) for x in win])
 
     def _time(self, t, like: Tensor) -> Tensor:
         if isinstance(t, Tensor):
@@ -523,21 +431,15 @@ class VOFrontend:
         return self._detect_with(frame_pair, state.thresh_pair,
                                  state.last_kl_num_pair, self.cam_pair)
 
-    def _check_pair(self, frame_pair):
-        if frame_pair is not None and not self.stereo:
-            raise ValueError("frame_pair given to a mono frontend "
-                             "(StereoAvaiable=0)")
-
     def bootstrap(self, state: VOState, frame, t,
                   frame_pair=None) -> VOState:
         """Process the first frame: detection only (the reference's dummy
         first-frame consume, rebvo_second_t.cpp:108-122); a stereo pair
         frame advances the pair detector's threshold loop."""
-        self._check_pair(frame_pair)
-        with obs.unit(self):
-            return self._bootstrap(state, frame, t, frame_pair)
+        return self._entry(self._bootstrap, frame_pair, state, frame, t)
 
-    def _bootstrap(self, state: VOState, frame, t, frame_pair) -> VOState:
+    def _bootstrap(self, state: VOState, frame, t, *,
+                   frame_pair) -> VOState:
         frame = self._frame(frame)
         klm, mask_img, kl_num, thresh, retuned = self._detect(state, frame)
         field_img = build_field(
@@ -557,21 +459,34 @@ class VOFrontend:
 
     # ------------------------------------------------------------------
 
-    def _front(self, state: VOState, frame: Tensor):
-        """Detection + quantile + match field."""
+    def _front(self, state: VOState, frame: Tensor, frame_pair, tl):
+        """The stage `vo.front` (detection, quantile, match field) and,
+        given a cam1 frame, its detection under `vo.stereo`, with the pair
+        detector's own threshold carry."""
         p = self.params
         cam = self.cam
-        with obs.span("vo.detect"):
-            new_klm, new_mask, kl_num, thresh, retuned = self._detect(state,
-                                                                      frame)
-        s_rho_q = estimate_quantile(
-            state.klm, percentile=p.QCutOffQuantile, nbins=p.QCutOffNumBins)
-        field_img = build_field(
-            new_klm, retuned, radius=min(p.FieldRadius, p.SearchRange),
-            height=cam.height, width=cam.width)
-        fv = FieldView.from_map(field_img, new_klm)
-        return (new_klm, new_mask, kl_num, thresh, retuned, s_rho_q, fv,
-                field_img)
+        with obs.span("vo.front"):
+            with obs.span("vo.detect"):
+                new_klm, new_mask, kl_num, thresh, retuned = self._detect(
+                    state, frame)
+            s_rho_q = estimate_quantile(
+                state.klm, percentile=p.QCutOffQuantile,
+                nbins=p.QCutOffNumBins)
+            field_img = build_field(
+                new_klm, retuned, radius=min(p.FieldRadius, p.SearchRange),
+                height=cam.height, width=cam.width)
+            fv = FieldView.from_map(field_img, new_klm)
+        tl.mark("vo.front")
+        stereo, thresh_p, kl_num_p = None, state.thresh_pair, \
+            state.last_kl_num_pair
+        if frame_pair is not None:
+            with obs.span("vo.stereo"), obs.span("vo.detect"):
+                klm1, mask1, kl_num_p, thresh_p, _ = self._detect_pair(
+                    state, self._frame(frame_pair))
+            stereo = (klm1, mask1)
+            tl.mark("vo.stereo")
+        return _Front(new_klm, new_mask, kl_num, thresh, retuned, s_rho_q,
+                      fv, field_img, stereo, thresh_p, kl_num_p)
 
     def _match(self, state: VOState, new_klm: KeylineMap, V, P_V, R):
         p = self.params
@@ -600,23 +515,11 @@ class VOFrontend:
         enough = torch.sum(anchored) >= self.params.GlobalMatchThreshold
         return torch.where(enough, anchored, old.valid)
 
-    def _stereo_front(self, state: VOState, frame_pair):
-        """Detect the cam1 frame when one was given: the (klm1, mask1)
-        bundle for `_tail` and the pair detector's threshold carry."""
-        if frame_pair is None:
-            return None, state.thresh_pair, state.last_kl_num_pair
-        with obs.span("vo.stereo"), obs.span("vo.detect"):
-            klm1, mask1, kl_num_p, thresh_p, _ = self._detect_pair(
-                state, self._frame(frame_pair))
-        return (klm1, mask1), thresh_p, kl_num_p
-
     def _tail(self, state: VOState, new_fm: KeylineMap, V, P_V, R,
               nan_fail, stereo=None):
         """Directed matching, depth filtering, and the stereo depth fusion
         (`stereo` = the pair's (klm1, mask1)) or the mono rescaling; the
-        caller has merged the forward rotations into state.klm. Returns
-        (map, klm_num, est_ok, Kp, Kp_gauge, P_Kp, V_out, stereo_num,
-        gauge_div, VScaleC, aR, aV, aAge)."""
+        caller has merged the forward rotations into state.klm."""
         p = self.params
         cam = self.cam
         one = torch.ones((), dtype=V.dtype, device=V.device)
@@ -745,8 +648,8 @@ class VOFrontend:
         # gauge_div: the factor this frame's re-gauge divided the map's
         # inverse depths by; the caller multiplies the warm-start velocity
         # by it
-        return (new_final, klm_num, est_ok, Kp, Kp_gauge, P_Kp, V_out,
-                stereo_num, gauge_div, C_vel, aR_new, aV_new, aAge_new)
+        return _Tail(new_final, klm_num, est_ok, Kp, Kp_gauge, P_Kp, V_out,
+                     stereo_num, gauge_div, C_vel, aR_new, aV_new, aAge_new)
 
     def _stereo_depth(self, state: VOState, proc: KeylineMap, stereo,
                       est_ok, at_epoch):
@@ -801,57 +704,154 @@ class VOFrontend:
         return proc, sres.nmatch, gauge_div
 
     # ------------------------------------------------------------------
-    # Vision-only path (rebvo_second_t.cpp:338-382 + common tail)
+    # Entry points and the frame skeleton
     # ------------------------------------------------------------------
 
     def step(self, state: VOState, frame, t,
              frame_pair=None) -> Tuple[VOState, FrameOutput]:
         """One frame (`frame_pair`: the cam1 frame, stereo only). Pure:
         the input state is left as it was."""
-        self._check_pair(frame_pair)
-        with obs.unit(self):
-            return self._step(state, frame, t, frame_pair, donate=False)
+        return self._entry(self._step, frame_pair, self._mono, False, state,
+                           frame, t)
 
     def step_donated(self, state: VOState, frame, t,
                      frame_pair=None) -> Tuple[VOState, FrameOutput]:
         """`step` that may reuse the input state's buffers (it appends the
         nav-log row in place), the counterpart of the JAX package's
         donated step: the caller must not touch the old state."""
-        self._check_pair(frame_pair)
-        with obs.unit(self):
-            return self._step(state, frame, t, frame_pair, donate=True)
+        return self._entry(self._step, frame_pair, self._mono, True, state,
+                           frame, t)
 
-    def _step(self, state: VOState, frame, t, frame_pair,
-              donate: bool) -> Tuple[VOState, FrameOutput]:
+    def step_imu(self, state: VOState, frame, t, win: ImuWindow,
+                 R_cam2imu: Tensor = None, T_cam2imu: Tensor = None,
+                 frame_pair=None) -> Tuple[VOState, FrameOutput]:
+        """One visual-inertial frame: `win` holds the IMU samples since
+        the previous frame, in the IMU frame (R_cam2imu / T_cam2imu: the
+        camera-to-IMU extrinsics, default identity). Pure: the input
+        state is left as it was. `frame_pair`: the cam1 frame, stereo
+        only."""
+        return self._entry(self._step, frame_pair, self._vi, False, state,
+                           frame, t, win, R_cam2imu, T_cam2imu)
+
+    def step_imu_donated(self, state: VOState, frame, t, win: ImuWindow,
+                         R_cam2imu: Tensor = None, T_cam2imu: Tensor = None,
+                         frame_pair=None) -> Tuple[VOState, FrameOutput]:
+        """`step_imu` that appends the nav-log row into the input state's
+        ring in place (the JAX package's donated step_imu): the caller
+        must not touch the old state."""
+        return self._entry(self._step, frame_pair, self._vi, True, state,
+                           frame, t, win, R_cam2imu, T_cam2imu)
+
+    def _entry(self, fn, frame_pair, *args):
+        """An entry call, one `obs.unit`: `fn(*args, frame_pair=...)`. A
+        `frame_pair` given to a mono frontend raises ValueError."""
+        if frame_pair is not None and not self.stereo:
+            raise ValueError("frame_pair given to a mono frontend "
+                             "(StereoAvaiable=0)")
+        with obs.unit(self):
+            return fn(*args, frame_pair=frame_pair)
+
+    def _step(self, body, donate: bool, state: VOState, frame, t, *extra,
+              frame_pair) -> Tuple[VOState, FrameOutput]:
+        """The frame skeleton of every step: the frame, `t` and the clamped
+        `dt_frame`; `body`'s stages (`_mono` or `_vi`, given `extra`); the
+        keyframe block; then NavData, FrameOutput, the nav-log row and the
+        next VOState, built here alone."""
+        p = self.params
+        tl = obs.Timeline(state.Vel.device)
+        frame = self._frame(frame)
+        t = self._time(t, state.t)
+        dt_frame = t - state.t
+        dt_frame = torch.where(
+            dt_frame < 0.001,
+            torch.full_like(dt_frame, 1.0 / p.config_fps), dt_frame)
+        s = body(state, frame, dt_frame, frame_pair, tl, *extra)
+        tl.mark()
+        fr, tail = s.front, s.tail
+        kw = dict(dtype=state.Vel.dtype, device=state.Vel.device)
+        i32 = dict(dtype=torch.int32, device=kw["device"])
+        kf_carry, klm, Pose, Pos = state.kf, tail.klm, s.Pose, s.Pos
+        with obs.span("vo.keyframe"):
+            if p.TrackKeyFrames:          # online keyframe tracking
+                res = track_keyframe(
+                    kf_carry, klm, fr.fv, Pose, Pos, s.K_scale, fr.kl_num,
+                    fr.s_rho_q, tail.est_ok, s.G_gauge, cam=self.cam,
+                    params=p)
+                kf_carry, klm, Pose, Pos = res.kf, res.klm, res.Pose, res.Pos
+                kf_id, kf_back_m, kf_saved = (res.kf.count - 1, res.back_m,
+                                              res.saved)
+            else:
+                kf_id = torch.full((), -1, **i32)
+                kf_back_m = torch.zeros((), **i32)
+                kf_saved = torch.zeros((), dtype=torch.bool,
+                                       device=kw["device"])
+        tl.mark("vo.keyframe")
+
+        vi = s.imu is not None
+        rot_lie = so3_log(s.R)
+        vel = -tail.V_out * s.K_scale
+        if not vi:     # mono's gauge-consistent export (see `_mono`)
+            vel = vel * s.G_gauge
+        nav = NavData(
+            t=t, dt=dt_frame, Rot=s.R, RotLie=rot_lie, Vel=vel / dt_frame,
+            Pose=Pose, PoseLie=so3_log(Pose), Pos=Pos,
+            g=s.g if vi else torch.zeros(3, **kw), scale=s.K_scale,
+            estimation_ok=tail.est_ok, kl_num=fr.kl_num,
+            klm_num=tail.klm_num)
+        # the warm starts follow this frame's re-gauge
+        imu = s.imu._replace(Vg=s.imu.Vg * tail.gauge_div) if vi else \
+            state.imu
+        W_X = torch.where(s.nan_fail, torch.eye(6, **kw) * 1e-12, s.W_X)
+        imu_dbg = torch.stack(s.imu_dbg).to(kw["dtype"]) if vi else None
+        out = FrameOutput(
+            nav=nav, s_rho_q=fr.s_rho_q, score=s.score,
+            rel_error=torch.zeros((), **kw) if vi else s.rel_error,
+            stereo_num=tail.stereo_num, kf_id=kf_id, kf_back_m=kf_back_m,
+            kf_saved=kf_saved, W_X=W_X, Kp=tail.Kp, RKp=tail.P_Kp,
+            imu_dbg=imu_dbg if vi else torch.zeros((len(IMU_DBG_ROWS), 3),
+                                                   **kw))
+        navlog, navlog_n = state.navlog, state.navlog_n
+        if p.NavLogCap > 0:
+            # the packed row appended to the device ring: in place when
+            # the input state is donated, else into a copy of the ring;
+            # in place by index_put_, which vmap batches (index_copy_ it
+            # does not)
+            row = pack_nav_row(out)
+            idx = (navlog_n % navlog.shape[0]).to(torch.int64).reshape(1)
+            navlog = navlog.index_put_((idx,), row[None]) if donate else \
+                navlog.index_copy(0, idx, row[None])
+            navlog_n = navlog_n + 1
+        new_state = VOState(
+            klm=klm, mask_img=fr.mask_img, field_img=fr.field_img,
+            thresh=fr.thresh, retuned=fr.retuned, last_kl_num=fr.kl_num,
+            thresh_pair=fr.thresh_pair, last_kl_num_pair=fr.kl_num_pair,
+            Vel=tail.V_out * tail.gauge_div, W0=s.W0, Kp=tail.Kp,
+            P_Kp=tail.P_Kp, K_scale=s.K_scale, Pose=Pose, Pos=Pos, t=t,
+            frame_count=state.frame_count + 1, imu=imu, kf=kf_carry,
+            navlog=navlog, navlog_n=navlog_n, G_gauge=s.G_gauge,
+            VScaleC=tail.VScaleC, aR=tail.aR, aV=tail.aV, aAge=tail.aAge)
+        tl.close()
+        return new_state, out
+
+    def _mono(self, state: VOState, frame: Tensor, dt_frame, frame_pair,
+              tl) -> _Stages:
+        """The vision-only stages (rebvo_second_t.cpp:338-382 + common
+        tail): `vo.front`, `vo.pose` (minimizer_rv), `vo.match_depth`,
+        the pose composition."""
         p = self.params
         cam = self.cam
         dt_f = state.Vel.dtype
         dev = state.Vel.device
-        tl = obs.Timeline(dev)
-        frame = self._frame(frame)
-        t = self._time(t, state.t)
-        dt_frame = t - state.t
-        dt_frame = torch.where(dt_frame < 0.001,
-                               torch.full_like(dt_frame, 1.0 / p.config_fps),
-                               dt_frame)
-
-        with obs.span("vo.front"):
-            (new_klm, new_mask, kl_num, thresh, retuned, s_rho_q, fv,
-             field_img) = self._front(state, frame)
-        tl.mark("vo.front")
-        stereo, thresh_pair, kl_num_pair = self._stereo_front(state,
-                                                              frame_pair)
-        if stereo is not None:
-            tl.mark("vo.stereo")
+        fr = self._front(state, frame, frame_pair, tl)
         old = state.klm
 
         with obs.span("vo.pose"):
             match_num_min = torch.clamp(state.frame_count,
                                         max=p.MatchNumThresh)
             mres = minimizer_rv(
-                state.Vel, state.W0, old, fv, zfm=cam.zfm, cx=cam.cx,
+                state.Vel, state.W0, old, fr.fv, zfm=cam.zfm, cx=cam.cx,
                 cy=cam.cy, width=cam.width, height=cam.height,
-                match_thresh=p.TrackerMatchThresh, max_s_rho=s_rho_q,
+                match_thresh=p.TrackerMatchThresh, max_s_rho=fr.s_rho_q,
                 match_num_min=match_num_min, k_huber=p.ReweigthDistance,
                 iter_max=p.TrackerIterNum, init_iter=p.TrackerInitIterNum,
                 init_type=p.TrackerInitType,
@@ -868,14 +868,11 @@ class VOFrontend:
         tl.mark("vo.pose")
 
         with obs.span("vo.match_depth"):
-            new_fm, _ = forward_match(old, new_klm, mres.m_id_f)
+            new_fm, _ = forward_match(old, fr.klm, mres.m_id_f)
             R0 = so3_exp(W)
             R = R0.T
             state2 = state._replace(klm=self._rotate_map(old, R0))
-            (new_final, klm_num, est_ok, Kp, Kp_gauge, P_Kp, V_out,
-             stereo_num, gauge_div, C_vel, aR_new, aV_new,
-             aAge_new) = self._tail(state2, new_fm, V, P_V, R, nan_fail,
-                                    stereo)
+            tail = self._tail(state2, new_fm, V, P_V, R, nan_fail, fr.stereo)
         tl.mark("vo.match_depth")
 
         K_scale = state.K_scale
@@ -883,92 +880,24 @@ class VOFrontend:
         # gauge-consistent export (mono): multiply exported displacements
         # by the cumulative rescaling ratio (see the JAX package)
         if p.GaugeExport:
-            G_gauge = torch.clamp(state.G_gauge * Kp_gauge, 1e-4, 1e4)
+            G_gauge = torch.clamp(state.G_gauge * tail.Kp_gauge, 1e-4, 1e4)
         else:
             G_gauge = state.G_gauge
-        Pos = state.Pos - matmul(Pose, V_out * K_scale * G_gauge)
-        tl.mark()
+        Pos = state.Pos - matmul(Pose, tail.V_out * K_scale * G_gauge)
+        return _Stages(fr, tail, R, W, nan_fail, mres.W_X, mres.score,
+                       mres.rel_error, K_scale, G_gauge, Pose, Pos)
 
-        with obs.span("vo.keyframe"):
-            (kf_carry, new_final, Pose, Pos, kf_id, kf_back_m,
-             kf_saved) = self._kf_track(state, new_final, fv, Pose, Pos,
-                                        K_scale, kl_num, s_rho_q, est_ok,
-                                        G_gauge)
-        tl.mark("vo.keyframe")
-
-        nav = NavData(
-            t=t, dt=dt_frame, Rot=R, RotLie=so3_log(R),
-            Vel=-V_out * K_scale * G_gauge / dt_frame,
-            Pose=Pose, PoseLie=so3_log(Pose), Pos=Pos,
-            g=torch.zeros(3, dtype=dt_f, device=dev), scale=K_scale,
-            estimation_ok=est_ok, kl_num=kl_num, klm_num=klm_num)
-        W_X_out = torch.where(nan_fail,
-                              torch.eye(6, dtype=dt_f, device=dev) * 1e-12,
-                              mres.W_X)
-        out = FrameOutput(
-            nav=nav, s_rho_q=s_rho_q, score=mres.score,
-            rel_error=mres.rel_error, stereo_num=stereo_num,
-            kf_id=kf_id, kf_back_m=kf_back_m, kf_saved=kf_saved,
-            W_X=W_X_out, Kp=Kp, RKp=P_Kp,
-            imu_dbg=torch.zeros((len(IMU_DBG_ROWS), 3), dtype=dt_f,
-                                device=dev))
-        navlog, navlog_n = self._log_nav(state, out, donate)
-        new_state = VOState(
-            klm=new_final, mask_img=new_mask, field_img=field_img,
-            thresh=thresh, retuned=retuned, last_kl_num=kl_num,
-            thresh_pair=thresh_pair, last_kl_num_pair=kl_num_pair,
-            Vel=V_out * gauge_div, W0=W, Kp=Kp, P_Kp=P_Kp, K_scale=K_scale,
-            Pose=Pose, Pos=Pos, t=t, frame_count=state.frame_count + 1,
-            imu=state.imu, kf=kf_carry, navlog=navlog, navlog_n=navlog_n,
-            G_gauge=G_gauge, VScaleC=C_vel, aR=aR_new, aV=aV_new,
-            aAge=aAge_new)
-        tl.close()
-        return new_state, out
-
-    # ------------------------------------------------------------------
-    # Visual-inertial path (rebvo_second_t.cpp:182-335, 528-546)
-    # ------------------------------------------------------------------
-
-    def step_imu(self, state: VOState, frame, t, win: ImuWindow,
-                 R_cam2imu: Tensor = None, T_cam2imu: Tensor = None,
-                 frame_pair=None) -> Tuple[VOState, FrameOutput]:
-        """One visual-inertial frame: `win` holds the IMU samples since
-        the previous frame, in the IMU frame (R_cam2imu / T_cam2imu: the
-        camera-to-IMU extrinsics, default identity). Pure: the input
-        state is left as it was. `frame_pair`: the cam1 frame, stereo
-        only."""
-        self._check_pair(frame_pair)
-        with obs.unit(self):
-            return self._step_imu(state, frame, t, win, R_cam2imu,
-                                  T_cam2imu, frame_pair, donate=False)
-
-    def step_imu_donated(self, state: VOState, frame, t, win: ImuWindow,
-                         R_cam2imu: Tensor = None, T_cam2imu: Tensor = None,
-                         frame_pair=None) -> Tuple[VOState, FrameOutput]:
-        """`step_imu` that appends the nav-log row into the input state's
-        ring in place (the JAX package's donated step_imu): the caller
-        must not touch the old state."""
-        self._check_pair(frame_pair)
-        with obs.unit(self):
-            return self._step_imu(state, frame, t, win, R_cam2imu,
-                                  T_cam2imu, frame_pair, donate=True)
-
-    def _step_imu(self, state: VOState, frame, t, win: ImuWindow, R_cam2imu,
-                  T_cam2imu, frame_pair,
-                  donate: bool) -> Tuple[VOState, FrameOutput]:
+    def _vi(self, state: VOState, frame: Tensor, dt_frame, frame_pair, tl,
+            win: ImuWindow, R_cam2imu, T_cam2imu) -> _Stages:
+        """The visual-inertial stages (rebvo_second_t.cpp:182-335,
+        528-546): `vo.imu`, `vo.front`, `vo.pose` (minimizer_v),
+        `vo.imu_filter`, `vo.match_depth`, the gravity-aligned pose."""
         p = self.params
         cam = self.cam
         dt_f = state.Vel.dtype
         dev = state.Vel.device
         kw = dict(dtype=dt_f, device=dev)
-        tl = obs.Timeline(dev)
-        frame = self._frame(frame)
-        win = self._window(win)
-        t = self._time(t, state.t)
-        dt_frame = t - state.t
-        dt_frame = torch.where(dt_frame < 0.001,
-                               torch.full_like(dt_frame, 1.0 / p.config_fps),
-                               dt_frame)
+        win = ImuWindow(*[torch.as_tensor(x).to(self.device) for x in win])
         eye3 = torch.eye(3, **kw)
         z3 = torch.zeros(3, **kw)
         R_cam2imu = eye3 if R_cam2imu is None else \
@@ -1010,14 +939,7 @@ class VOFrontend:
             old_pre = self._rotate_map(state.klm, R.T)
         tl.mark("vo.imu")
 
-        with obs.span("vo.front"):
-            (new_klm, new_mask, kl_num, thresh, retuned, s_rho_q, fv,
-             field_img) = self._front(state._replace(klm=old_pre), frame)
-        tl.mark("vo.front")
-        stereo, thresh_pair, kl_num_pair = self._stereo_front(state,
-                                                              frame_pair)
-        if stereo is not None:
-            tl.mark("vo.stereo")
+        fr = self._front(state._replace(klm=old_pre), frame, frame_pair, tl)
 
         with obs.span("vo.pose"):
             match_num_min = torch.clamp(state.frame_count,
@@ -1032,14 +954,14 @@ class VOFrontend:
                                  dv_imu, z3)
             Vg0 = z3 if p.TrackerInitType == 0 else ic.Vg + dv_imu
             vres = minimizer_v(
-                Vg0, old_pre, fv, zfm=cam.zfm, cx=cam.cx, cy=cam.cy,
+                Vg0, old_pre, fr.fv, zfm=cam.zfm, cx=cam.cx, cy=cam.cy,
                 width=cam.width, height=cam.height,
-                match_thresh=p.TrackerMatchThresh, max_s_rho=s_rho_q,
+                match_thresh=p.TrackerMatchThresh, max_s_rho=fr.s_rho_q,
                 match_num_min=match_num_min, k_huber=p.ReweigthDistance,
                 min_mod=state.retuned, iter_max=p.TrackerIterNum,
                 vote_mask=self._solver_vote_mask(old_pre))
             Vg = vres.Vel
-            new_fm, _ = forward_match(old_pre, new_klm, vres.m_id_f)
+            new_fm, _ = forward_match(old_pre, fr.klm, vres.m_id_f)
         tl.mark("vo.pose")
 
         with obs.span("vo.imu_filter"):
@@ -1100,10 +1022,7 @@ class VOFrontend:
             nan_fail = torch.any(~torch.isfinite(V)) | (~ok_x)
             V = torch.where(nan_fail, z3, V)
             P_V = torch.where(nan_fail, eye3 * BIG, P_V)
-            (new_final, klm_num, est_ok, Kp, Kp_gauge, P_Kp, V_out,
-             stereo_num, gauge_div, C_vel, aR_new, aV_new,
-             aAge_new) = self._tail(state2, new_fm, V, P_V, R, nan_fail,
-                                    stereo)
+            tail = self._tail(state2, new_fm, V, P_V, R, nan_fail, fr.stereo)
         tl.mark("vo.match_depth")
 
         # --- Gravity-aligned pose integration (rebvo_second_t.cpp:528-546).
@@ -1123,50 +1042,18 @@ class VOFrontend:
         Pose = torch.where(filter_on, Pose_f, state.Pose)
         Pos = torch.where(filter_on, Pos_f, state.Pos)
         u_est = torch.where(filter_on, u_est, ic.u_est)
-        tl.mark()
-
-        with obs.span("vo.keyframe"):
-            (kf_carry, new_final, Pose, Pos, kf_id, kf_back_m,
-             kf_saved) = self._kf_track(state, new_final, fv, Pose, Pos,
-                                        K_scale, kl_num, s_rho_q, est_ok,
-                                        state.G_gauge)
-        tl.mark("vo.keyframe")
-
-        nav = NavData(
-            t=t, dt=dt_frame, Rot=R, RotLie=so3_log(R),
-            Vel=-V_out * K_scale / dt_frame,
-            Pose=Pose, PoseLie=so3_log(Pose), Pos=Pos,
-            g=g_est, scale=K_scale,
-            estimation_ok=est_ok, kl_num=kl_num, klm_num=klm_num)
 
         imu_carry = ImuCarry(
             init=init, n_init=n_init, giro_init=giro_init, g_init=g_init,
-            Bg=Bg, W_Bg=W_Bg, Vg=Vg * gauge_div, X7=X7, P7=P7, u_est=u_est,
+            Bg=Bg, W_Bg=W_Bg, Vg=Vg, X7=X7, P7=P7, u_est=u_est,
             g_est=g_est, b_est=b_est, windows=win2, Posgv=Posgv)
-
-        W_X_out = torch.where(nan_fail, torch.eye(6, **kw) * 1e-12, W_Xgv)
-        # VI filter internals for the .m log (IMU_DBG_ROWS order;
-        # rebvo_third_t.cpp:283-299 census)
-        imu_dbg = torch.stack([imu.giro, imu.acel, imu.cacel, imu.dgiro,
-                               Bg, Xv[3:], dWgv, b_est, Av, As, Posgv])
-        out = FrameOutput(
-            nav=nav, s_rho_q=s_rho_q, score=vres.score,
-            rel_error=torch.zeros((), **kw), stereo_num=stereo_num,
-            kf_id=kf_id, kf_back_m=kf_back_m, kf_saved=kf_saved,
-            W_X=W_X_out, Kp=Kp, RKp=P_Kp, imu_dbg=imu_dbg.to(dt_f))
-        navlog, navlog_n = self._log_nav(state, out, donate)
-        new_state = VOState(
-            klm=new_final, mask_img=new_mask, field_img=field_img,
-            thresh=thresh, retuned=retuned, last_kl_num=kl_num,
-            thresh_pair=thresh_pair, last_kl_num_pair=kl_num_pair,
-            Vel=V_out * gauge_div, W0=dWgv, Kp=Kp, P_Kp=P_Kp,
-            K_scale=K_scale, Pose=Pose, Pos=Pos, t=t,
-            frame_count=state.frame_count + 1, imu=imu_carry, kf=kf_carry,
-            navlog=navlog, navlog_n=navlog_n,
-            G_gauge=state.G_gauge,   # VI: metric scale K owns the gauge
-            VScaleC=C_vel, aR=aR_new, aV=aV_new, aAge=aAge_new)
-        tl.close()
-        return new_state, out
+        # VI filter internals for the .m log (rebvo_third_t.cpp:283-299
+        # census)
+        imu_dbg = (imu.giro, imu.acel, imu.cacel, imu.dgiro, Bg, Xv[3:],
+                   dWgv, b_est, Av, As, Posgv)
+        return _Stages(fr, tail, R, dWgv, nan_fail, W_Xgv, vres.score, None,
+                       K_scale, state.G_gauge, Pose, Pos, g_est, imu_carry,
+                       imu_dbg)
 
     # ------------------------------------------------------------------
     # Chunked step (the counterpart of the JAX package's lax.scan)
@@ -1190,16 +1077,17 @@ class VOFrontend:
         window packer keeps at most S samples, so every window it cut is
         among them).
 
-        On a CUDA state the N steps are one CUDA graph, captured at the
-        first call for each (N, H, W), or (N, H, W, S) with windows, and
-        replayed by every later call. The frames, timestamps and windows
-        are copied into the graph's static buffers, and a state other
-        than the one the last call returned into its static state. The
-        state returned IS that static state, so chained calls copy no
-        state, and the next call overwrites it; the outputs returned are
-        copies. A capture that fails raises: a CUDA state never runs the
-        steps eagerly here. On a CPU state the same N steps run in a
-        Python loop. The call is one `obs.unit` of N frames."""
+        On a CUDA state the N steps are one CUDA graph
+        (`graphs.GraphCache`), captured at the first call for each (N, H,
+        W), or (N, H, W, S) with windows, and replayed by every later
+        call. The frames, timestamps and windows are copied into the
+        graph's static buffers, and a state other than the one the last
+        call returned into its static state. The state returned IS that
+        static state, so chained calls copy no state, and the next call
+        overwrites it; the outputs returned are copies. A capture that
+        fails raises: a CUDA state never runs the steps eagerly here. On
+        a CPU state the same N steps run in a Python loop. The call is
+        one `obs.unit` of N frames."""
         with obs.unit(self, len(frames)):
             return self._step_scan(state, frames, ts, wins)
 
@@ -1223,14 +1111,22 @@ class VOFrontend:
             obs.count("imu.truncated", int((wins.count >= g.shape[1]).sum()))
         return wins
 
-    def _scan_step(self, state: VOState, frames: Tensor, ts: Tensor,
-                   wins: Optional[ImuWindow], i: int):
-        """Step i of a chunk: mono, or visual-inertial with window i."""
-        if wins is None:
-            return self.step_donated(state, frames[i], ts[i])
-        return self.step_imu_donated(state, frames[i], ts[i],
-                                     ImuWindow(*[x[i] for x in wins]),
-                                     self.R_cam2imu, self.T_cam2imu)
+    def _scan_steps(self, state: VOState, inputs: tuple, n: int):
+        """The first n steps of a chunk, `inputs` (frames, ts) or (frames,
+        ts, windows): `step_donated`, or `step_imu_donated` with each
+        frame's window. Returns the state and the n outputs."""
+        frames, ts, *wins = inputs
+        outs = []
+        for i in range(n):
+            if wins:
+                state, out = self.step_imu_donated(
+                    state, frames[i], ts[i],
+                    ImuWindow(*[x[i] for x in wins[0]]), self.R_cam2imu,
+                    self.T_cam2imu)
+            else:
+                state, out = self.step_donated(state, frames[i], ts[i])
+            outs.append(out)
+        return state, outs
 
     def _step_scan(self, state: VOState, frames, ts, wins):
         frames = self._frame(frames)
@@ -1240,121 +1136,32 @@ class VOFrontend:
                              f"[N], got {tuple(frames.shape)} and "
                              f"{tuple(ts.shape)}")
         n = frames.shape[0]
+        key = tuple(frames.shape)
+        inputs = (frames, ts)
         if wins is not None:
             wins = self._scan_windows(wins, n)
+            key += (wins.gyro.shape[1], "imu")
+            inputs += (wins,)
         if state.t.device.type == "cpu":
-            outs = []
-            for i in range(n):
-                state, out = self._scan_step(state, frames, ts, wins, i)
-                outs.append(out)
-            return state, _stack_outputs(outs)
+            state, outs = self._scan_steps(state, inputs, n)
+            return state, stack_trees(outs)
         if state.t.device.type != "cuda":
             raise ValueError(f"step_scan: unsupported device "
                              f"{state.t.device}")
-        key = tuple(frames.shape) + (
-            () if wins is None else (wins.gyro.shape[1], "imu"))
-        g = self._scan_graphs.get(key)
-        if g is None:
-            g = self._capture_scan(state, frames, ts, wins, key)
 
-        def copy_in():
-            g.frames.copy_(frames)
-            g.ts.copy_(ts)
-            if wins is not None:
-                for dst, src in zip(g.wins, wins):
-                    dst.copy_(src)
-            if state is not self._scan_state:
-                _copy_state_(self._scan_state, state)
-
-        return self._scan_state, replay_graph(g.cap, copy_in)
-
-    def _capture_scan(self, state: VOState, frames: Tensor, ts: Tensor,
-                      wins: Optional[ImuWindow], key: tuple) -> _ScanGraph:
-        """Capture len(frames) donated steps from the static state as one
-        CUDA graph (`capture_graph`): the warm-up runs two steps on a
-        clone of `state`, so the caller's state does not advance; the
-        capture ends by copying the final state into the static one.
-
-        The static state is made at the first capture, on the caller's
-        stream, with the memory layout of the state the warm-up's steps
-        leave: a step returns some leaves in another layout than the
-        initial state has (the VI filter's inverses, `imu.P7` and
-        `imu.W_Bg`, come back column-major), and a kernel baked for one
-        layout can round otherwise than the one an eager step picks for
-        the other, so the graph's first step reads its state as every
-        later step does."""
-        if self._scan_state is None:
-            self._scan_pool = torch.cuda.graph_pool_handle()
-        frames_s, ts_s = frames.clone(), ts.clone()
-        wins_s = None if wins is None else tree_map(
-            lambda x: x.to(frames.device, copy=True), wins)
-        layout = []
-
-        def warmup():
-            st = tree_map(torch.clone, state)
-            for i in range(min(2, frames.shape[0])):
-                st, _ = self._scan_step(st, frames_s, ts_s, wins_s, i)
-            # a clone's layout, on the meta device: no memory
-            layout.append(tree_map(
-                lambda x: torch.empty_like(x, device="meta"), st))
-
-        def prepare():
-            if self._scan_state is None:
-                self._scan_state = tree_map(
-                    lambda m: torch.empty_strided(
-                        m.shape, m.stride(), dtype=m.dtype,
-                        device=frames.device), layout[0])
-                _copy_state_(self._scan_state, state)
-
-        def steps():
-            static = self._scan_state
-            st, outs = static, []
-            for i in range(frames.shape[0]):
-                st, out = self._scan_step(st, frames_s, ts_s, wins_s, i)
-                outs.append(out)
-            outs = _stack_outputs(outs)     # before the copy: an output
-            _copy_state_(static, st)        # may be a static state leaf
+        def run(static, x):
+            # the N steps from the static state, which then takes the
+            # final state; the warm-up runs two steps on a clone
+            st, outs = self._scan_steps(static, x, n)
+            outs = stack_trees(outs)    # before the copy: an output
+            copy_tree_(static, st)      # may be a static state leaf
             return outs
 
-        with torch.cuda.device(frames.device):
-            cap = capture_graph(steps, (), self._scan_pool, warmup,
-                                prepare)
-        g = _ScanGraph(cap, frames_s, ts_s, wins_s)
-        self._scan_graphs[key] = g
-        return g
+        return self._graphs(key, state, inputs, run,
+                            lambda st, x: self._scan_steps(st, x,
+                                                           min(2, n))[0])
 
     # ------------------------------------------------------------------
-
-    def _log_nav(self, state: VOState, out: FrameOutput, donate: bool):
-        """Append the packed nav row to the device ring: in place when the
-        input state is donated, else into a copy of the ring. The in-place
-        append is `index_put_`, which vmap batches (it has no rule for
-        `index_copy_`)."""
-        if self.params.NavLogCap <= 0:
-            return state.navlog, state.navlog_n
-        cap = state.navlog.shape[0]
-        row = pack_nav_row(out)
-        idx = (state.navlog_n % cap).to(torch.int64).reshape(1)
-        if donate:
-            navlog = state.navlog.index_put_((idx,), row[None])
-        else:
-            navlog = state.navlog.index_copy(0, idx, row[None])
-        return navlog, state.navlog_n + 1
-
-    def _kf_track(self, state: VOState, klm: KeylineMap, fv, Pose, Pos,
-                  K_scale, kl_num, s_rho_q, est_ok, G_gauge):
-        """Online keyframe tracking (TrackKeyFrames, statically gated)."""
-        dev = Pose.device
-        if not self.params.TrackKeyFrames:
-            return (state.kf, klm, Pose, Pos,
-                    torch.full((), -1, dtype=torch.int32, device=dev),
-                    torch.zeros((), dtype=torch.int32, device=dev),
-                    torch.zeros((), dtype=torch.bool, device=dev))
-        res = track_keyframe(
-            state.kf, klm, fv, Pose, Pos, K_scale, kl_num, s_rho_q, est_ok,
-            G_gauge, cam=self.cam, params=self.params)
-        return (res.kf, res.klm, res.Pose, res.Pos, res.kf.count - 1,
-                res.back_m, res.saved)
 
     def _rotate_map(self, klm: KeylineMap, R0: Tensor) -> KeylineMap:
         """Forward-rotate an edge map (edge_tracker::rotate_keylines)."""

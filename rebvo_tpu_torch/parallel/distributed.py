@@ -20,7 +20,7 @@ from __future__ import annotations
 import torch
 import torch.distributed as dist
 
-from rebvo_tpu_torch.frontend.step import tree_map
+from rebvo_tpu_torch.graphs import tree_map
 
 BACKENDS = ("gloo", "nccl")
 

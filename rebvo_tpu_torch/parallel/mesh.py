@@ -23,14 +23,12 @@ another device's data.
 
 from __future__ import annotations
 
-from typing import Callable, Dict, List, NamedTuple, Optional, Sequence
+from typing import Callable, List, Optional, Sequence
 
 import torch
 
 from rebvo_tpu_torch import obs
-from rebvo_tpu_torch.frontend.step import (Captured, _copy_state_,
-                                           capture_graph, replay_graph,
-                                           tree_leaves, tree_map)
+from rebvo_tpu_torch.graphs import GraphCache, signature, tree_leaves, tree_map
 
 Tensor = torch.Tensor
 
@@ -94,62 +92,48 @@ def stack_lanes(tree, n: int):
     return tree_map(lambda a: a.expand((n,) + a.shape).clone(), tree)
 
 
-class _Captured(NamedTuple):
-    """One CUDA graph of the vmapped function and its static inputs."""
-
-    cap: Captured
-    args: tuple
+def _plain_tuple(x) -> bool:
+    """A tuple that is not a NamedTuple: the step's (state, output)."""
+    return isinstance(x, tuple) and not hasattr(x, "_fields")
 
 
 class _BlockRunner:
     """vmap(fn) on one device's block; on a CUDA device, one CUDA graph
-    per input signature, sharing one memory pool. Each call is one
-    `obs.unit` over the block's lanes, numbered by `fn`'s frontend when
-    `fn` is a bound method of one (its `frame_id`)."""
+    per input signature (`graphs.GraphCache`), fn's first argument its
+    carried state. Each call is one `obs.unit` over the block's lanes,
+    numbered by `fn`'s frontend when `fn` is a bound method of one (its
+    `frame_id`)."""
 
     def __init__(self, fn: Callable, device: torch.device):
         self.vfn = torch.func.vmap(fn)
         self.owner = getattr(fn, "__self__", None)
         self.device = device
-        self.graphs: Dict[tuple, _Captured] = {}
-        self.pool = None
+        self.cache = GraphCache()
 
     def __call__(self, *args):
         leaves = tree_leaves(args)
         lanes = leaves[0].shape[0] if leaves and isinstance(
             leaves[0], Tensor) else 1
         with obs.unit(self.owner, 1, lanes):
-            return self._call(args, leaves)
+            if self.device.type == "cpu":
+                return self.vfn(*args)
+            for x in leaves:
+                if not isinstance(x, Tensor):
+                    raise TypeError(
+                        f"shard_sequences: every argument must be a tensor "
+                        f"(got {type(x).__name__}); a Python value would "
+                        f"be fixed into the CUDA graph at capture")
+            # the caller holds clones of the last outputs, so its state is
+            # never the static one: every input is copied in
+            _, outs = self.cache(signature(args), args[0], args[1:],
+                                 lambda st, inputs: self.vfn(st, *inputs),
+                                 self._warmup)
+            return outs
 
-    def _call(self, args, leaves):
-        if self.device.type == "cpu":
-            return self.vfn(*args)
-        for x in leaves:
-            if not isinstance(x, Tensor):
-                raise TypeError(
-                    f"shard_sequences: every argument must be a tensor "
-                    f"(got {type(x).__name__}); a Python value would be "
-                    f"fixed into the CUDA graph at capture")
-        key = tuple((tuple(x.shape), x.dtype) for x in leaves)
-        with torch.cuda.device(self.device):
-            g = self.graphs.get(key)
-            if g is None:
-                g = self.graphs[key] = self._capture(args)
-            # a tensor passed back from the last call is the caller's
-            # clone, so every input is copied into the static buffers
-            return replay_graph(g.cap, lambda: _copy_state_(g.args, args))
-
-    def _capture(self, args) -> _Captured:
-        if self.pool is None:
-            self.pool = torch.cuda.graph_pool_handle()
-        static = tree_map(torch.clone, args)
-
-        def warmup():
-            # on clones: a donating fn may write its inputs in place
-            self.vfn(*tree_map(torch.clone, static))
-
-        return _Captured(capture_graph(self.vfn, static, self.pool, warmup),
-                         static)
+    def _warmup(self, state, inputs):
+        """The state fn returns: alone, or first of a plain tuple."""
+        res = self.vfn(state, *inputs)
+        return res[0] if _plain_tuple(res) else res
 
 
 def shard_sequences(fn, mesh: Sequence[torch.device]) -> Callable:
@@ -165,7 +149,9 @@ def shard_sequences(fn, mesh: Sequence[torch.device]) -> Callable:
     device the first call per input signature syncs (it captures the
     graph); every later call copies the inputs into the graph's static
     buffers, replays it and returns clones of its outputs, without a
-    host sync. Every argument must be a tensor there."""
+    host sync. Every argument must be a tensor there; the first is fn's
+    carried state, whose static copy takes the layout of the state fn
+    returns (`graphs.GraphCache`)."""
     fns = list(fn) if isinstance(fn, (list, tuple)) else [fn] * len(mesh)
     runners = [_BlockRunner(f, d) for f, d in zip(fns, mesh)]
 
@@ -175,7 +161,7 @@ def shard_sequences(fn, mesh: Sequence[torch.device]) -> Callable:
                 raise ValueError(f"shard_sequences: expected {len(runners)} "
                                  f"blocks per argument, got {len(a)}")
         outs = [r(*[a[i] for a in sharded]) for i, r in enumerate(runners)]
-        if isinstance(outs[0], tuple) and not hasattr(outs[0], "_fields"):
+        if _plain_tuple(outs[0]):
             return tuple(list(x) for x in zip(*outs))
         return outs
     return run

@@ -284,7 +284,8 @@ def test_vi_graph_equals_eager_steps_on_the_card(vi_dir, card, tmp_path):
     graph = _run(fe, items, 16, 8, card)
     c1 = obs.counters()
     eager = _run(VOFrontend(p, device=card), items, 16, 0, card)
-    layout = [x.stride() for x in tree_leaves(fe._scan_state)]
+    static, = fe._graphs.states.values()
+    layout = [x.stride() for x in tree_leaves(static)]
     assert layout == [x.stride() for x in tree_leaves(eager[0])]
     assert c1["graph.captures"] - c0.get("graph.captures", 0) == 1
     assert c1["graph.replays"] - c0.get("graph.replays", 0) == 2

@@ -54,7 +54,7 @@ from rebvo_tpu_torch.frontend import step as step_mod  # noqa: E402
 from rebvo_tpu_torch.io.dataset import DatasetSequence  # noqa: E402
 from rebvo_tpu_torch.io.logger import RunLogger  # noqa: E402
 from rebvo_tpu_torch.io.trajectory import ate_rmse  # noqa: E402
-from rebvo_tpu_torch.frontend.step import tree_map  # noqa: E402
+from rebvo_tpu_torch.graphs import tree_map  # noqa: E402
 
 CANDIDATES = ("anchor_scale_measure", "velocity_scale_refine",
               "minimizer_rv")
