@@ -33,6 +33,15 @@ Phases, each printing one JSON line; any failure exits non-zero:
                 RVel within a float32 ulp), device ms against the plain
                 version and the bound, ptxas resources, resident clusters,
                 launches;
+  3e. K4 check — the keyframe tracker kernel against its plain version on
+                the card at the default config (752x480, K=16384): the
+                correct_and_augment calls of 16 rendered steps, each alone
+                and the 16 as one vmapped launch (m_f, m_kf, fow_m and
+                back_m equal), the kernel's and the plain body's device ms
+                for 1 and 16 lanes beside the bound (both maps read once,
+                both id arrays written once, at the card's memory rate),
+                the wrapper call's ms, its ptxas resources and resident
+                clusters, and its launch count;
   4. main     — the default-config mono path (752x480, KeylineMax=16384)
                 over 60 rendered frames, every step after the first under
                 torch.cuda.set_sync_debug_mode("error");
@@ -139,8 +148,10 @@ Phases, each printing one JSON line; any failure exits non-zero:
                 frames, pixels equal); run_vo --interactive with 's' after
                 frame 50; save_state after 10 frames, load_state, 5 more
                 steps against the run that was not interrupted;
-  9. kernels  — the kernel list, with K1's and K3's launches on every
-                path (K3 once a step on phases 4, 4b, 11, 11e and 13).
+  9. kernels  — the kernel list, with K1's, K3's and K4's launches on
+                every path (K3 once a step on phases 4, 4b, 11, 11e and
+                13; K4 once a step on phases 4, 4b, 10, 10e, 11, 11e and
+                13: once a batched call, 8 a replay of N=8).
 Each path (phases 4, 4b, 6, 6b, 8, 10, 10e, 10c, 11, 11c, 11e, 12b, 13,
 15)
 starts with every kernel's launch count at 0 and reports the counts it
@@ -466,6 +477,7 @@ def kernel_resources(name, log):
 
 
 N_K3_LANES = 16
+N_K4_LANES = 16
 N_K3V_LANES, K3V_FROM = 16, 13   # phase 3d: VI steps 13-28, the camera
 #                                  moving from 13, the filter from 15
 # K3 against its plain version: the fields whose float32 bits must agree,
@@ -732,6 +744,155 @@ def k3v_phase(smi, vi_dir, info):
     return k3v, ok
 
 
+# phase 3e: K4's bytes a slot at the least (kf_correct.cu's bound): the
+# frame map's px, py, p_id, n_id, m_id_kf, m_id and valid (a byte), the
+# keyframe map's px, py, p_id, n_id, m_id_f and valid, m_f and m_kf
+K4_BYTES_PER_SLOT = 6 * 4 + 1 + 5 * 4 + 1 + 2 * 4
+
+
+def k4_launch_config(K):
+    """K4's shared bytes, threads and cluster at K slots a lane, and its
+    resident clusters."""
+    lib = cuda_build.library("kf_correct")
+    intp = ctypes.POINTER(ctypes.c_int)
+    lib.kf_correct_max_clusters.argtypes = [ctypes.c_int, intp]
+    lib.kf_correct_max_clusters.restype = ctypes.c_int
+    lib.kf_correct_launch_config.argtypes = [ctypes.c_int] + [intp] * 3
+    lib.kf_correct_launch_config.restype = None
+    cfg = [ctypes.c_int(0) for _ in range(3)]
+    lib.kf_correct_launch_config(K, *[ctypes.byref(c) for c in cfg])
+    nclu = ctypes.c_int(0)
+    err = lib.kf_correct_max_clusters(K, ctypes.byref(nclu))
+    return {"smem_bytes": cfg[0].value, "threads": cfg[1].value,
+            "cluster": cfg[2].value, "clusters_per_lane": 2,
+            "max_active_clusters": nclu.value,
+            "max_active_clusters_err": err}
+
+
+def k4_phase(smi, p, frames, info):
+    """Phase 3e (module docstring). Returns (the kernel's numbers for the
+    kernel list, ok)."""
+    from rebvo_tpu_torch.frontend import kf_tracking as kft
+    from rebvo_tpu_torch.frontend import step as step_mod
+    dev = torch.device("cuda")
+    calls = []
+
+    def record(kf, klm, fv, Pose, Pos, *a, **kw):
+        calls.append((kf, klm, Pose, Pos))
+        return kft.track_keyframe(kf, klm, fv, Pose, Pos, *a, **kw)
+
+    fe = VOFrontend(p, device="cuda")
+    gf = torch.as_tensor(frames[:N_K4_LANES + 1], device=dev)
+    step_mod.track_keyframe = record
+    try:
+        st = fe.bootstrap(fe.init(), gf[0], 0.0)
+        for i in range(1, N_K4_LANES + 1):
+            st, _ = fe.step(st, gf[i], i / p.config_fps)
+    finally:
+        step_mod.track_keyframe = kft.track_keyframe
+    torch.cuda.synchronize()
+    zfm = fe.cam.zfm
+    kw = dict(dist_thresh=p.KFDistThresh, chain_steps=p.KFChainSteps,
+              aug_iters=p.KFAugIters, min_baseline_px=p.KFMinBaselinePx)
+
+    def compare(k, r):
+        res = {"m_f_mismatch": int((k[0] != r[0]).sum()),
+               "m_kf_mismatch": int((k[1] != r[1]).sum()),
+               "fow_m": [int(k[2].sum()), int(r[2].sum())],
+               "back_m": [int(k[3].sum()), int(r[3].sum())]}
+        res["ok"] = all(bool(torch.equal(a, b)) for a, b in zip(k, r))
+        return res
+
+    launches0 = kft.correct_and_augment.launches
+    cases = [compare(kft.correct_and_augment(*c, zfm, **kw),
+                     kft.correct_and_augment_plain(*c, zfm, **kw))
+             for c in calls]
+    # the 16 calls as 16 lanes of one vmapped call: one launch
+    lanes = [torch.utils._pytree.tree_map(lambda *x: torch.stack(x), *z)
+             for z in zip(*calls)]
+
+    def batched(fn):
+        return lambda: torch.func.vmap(
+            lambda *a: fn(*a, zfm, **kw))(*lanes)
+
+    run_k16 = batched(kft.correct_and_augment)
+    run_p16 = batched(kft.correct_and_augment_plain)
+    lanes16 = compare(run_k16(), run_p16())
+    launches = kft.correct_and_augment.launches - launches0
+    # the calls whose baseline tests pass (backward, forward): those walk
+    strong = [sum(bool(kft._scalars(*c, zfm, p.KFMinBaselinePx)[i])
+                  for c in calls) for i in (2, 3)]
+    ok = (all(c["ok"] for c in cases) and lanes16["ok"]
+          and launches == N_K4_LANES + 1)
+
+    # the kernel alone on the last call's inputs (and on all 16), the
+    # plain body on the same, the wrapper call (scalars and kernel)
+    def inputs(c):
+        return (*kft._scalars(*c, zfm, p.KFMinBaselinePx),
+                *kft._fields(c[1], c[0].klm))
+    t1 = inputs(calls[-1])
+    t16 = [torch.stack(x) for x in zip(*[inputs(c) for c in calls])]
+    kkw = {k: v for k, v in kw.items() if k != "min_baseline_px"}
+    kkw["zfm"] = float(zfm)
+    launch = kft._launcher()
+    stream = torch.cuda.current_stream().cuda_stream
+    l2 = torch.empty(64 * 2 ** 20 // 4, dtype=torch.float32, device=dev)
+    flush = l2.zero_
+
+    def run_k():
+        kft.kf_launch(launch, t1, stream, **kkw)
+
+    def run_k16_only():
+        kft.kf_launch(launch, t16, stream, **kkw)
+
+    def run_p():
+        kft._body_plain(*t1, **kkw)
+    plain_a = device_ms(run_p, 3, flush)
+    k_a = device_ms(run_k, 50, flush)
+    k16_a = device_ms(run_k16_only, 20, flush)
+    k_b = device_ms(run_k, 50, flush)
+    k16_b = device_ms(run_k16_only, 20, flush)
+    plain_b = device_ms(run_p, 3, flush)
+    times = {"kernel_ms": statistics.median([k_a, k_b]),
+             "kernel_ms_runs": [k_a, k_b],
+             "kernel_ms_16": statistics.median([k16_a, k16_b]),
+             "kernel_ms_16_runs": [k16_a, k16_b],
+             "plain_ms": statistics.median([plain_a, plain_b]),
+             "plain_ms_runs": [plain_a, plain_b],
+             "plain_ms_16": device_ms(run_p16, 2, flush),
+             "call_ms": time_cuda(
+                 lambda: kft.correct_and_augment(*calls[-1], zfm, **kw),
+                 100, flush)}
+    K = calls[-1][1].K
+    bw = H100_MEM_BYTES_PER_S
+    bytes_call = K * K4_BYTES_PER_SLOT
+    bound_ms = bytes_call / bw * 1e3
+    bound16_ms = N_K4_LANES * bound_ms
+    res = ptxas_resources(info["kf_correct"]["ptxas"], lambda e: "kf")
+    emit({"phase": "k4_check", "ok": ok, "cases": cases,
+          "lanes16": lanes16, "strong_calls_b_f": strong,
+          "launches": launches,
+          "expected_launches": N_K4_LANES + 1, "K": K,
+          "bytes": bytes_call, "bound_ms": bound_ms,
+          "bound_ms_16": bound16_ms,
+          "bound_by": "bytes (latency-bound: 13 dependent gather rounds a "
+                      "walk, 4 walks, 8 augment passes behind cluster "
+                      "barriers)",
+          **times, "x_bound": times["kernel_ms"] / bound_ms,
+          "x_bound_16": times["kernel_ms_16"] / bound16_ms,
+          "library_ms": None, "resources": res,
+          **k4_launch_config(K), "card": smi,
+          "timing": "as k1_check; kernel: kf_launch alone, plain: the "
+                    "body's ops on the same inputs, call: the wrapper "
+                    "(scalars and kernel), host gaps included; _16: 16 "
+                    "lanes in one call"})
+    k4 = {**{k: times[k] for k in ("kernel_ms", "kernel_ms_16", "call_ms",
+                                   "plain_ms", "plain_ms_16")},
+          "bound_ms": bound_ms, "bound_ms_16": bound16_ms,
+          "x_bound": times["kernel_ms"] / bound_ms,
+          "resources": res.get("kf"), "check_launches": launches}
+    return k4, ok
+
 def profile_steps(fe, state, frames, ts, step=None, extra=None,
                   table="profile.txt"):
     """Step through `frames` under torch.profiler with `step` (default
@@ -816,6 +977,7 @@ def vi_path(smi, vi_dir, pos_true, write_s):
     torch.cuda.reset_peak_memory_stats()
     zero_launches()
     kc0 = obs.counters().get("pose_v.kernel", 0)
+    kf0 = obs.counters().get("kf.kernel", 0)
     state = fe.bootstrap(fe.init(), apply_undistort(umap, frames[0]), ts[0])
     outs, step_ms, und_ev, pre = [], [], [], {}
     for i in range(1, N_VI):
@@ -843,6 +1005,9 @@ def vi_path(smi, vi_dir, pos_true, write_s):
     # K3's 3-dof mode: one launch a VI step, and its counter with it
     k3v_main = (vi_launches["minimizer_v"],
                 obs.counters().get("pose_v.kernel", 0) - kc0)
+    # K4: one launch a VI step, and its counter with it
+    k4_main = (vi_launches["correct_and_augment"],
+               obs.counters().get("kf.kernel", 0) - kf0)
     peak_mb = torch.cuda.max_memory_allocated() / 2 ** 20
     und_ms = statistics.median(a.elapsed_time(b) for a, b in und_ev)
     pos = np.stack([o.nav.Pos.cpu().numpy() for o in outs])
@@ -880,6 +1045,7 @@ def vi_path(smi, vi_dir, pos_true, write_s):
             and ate_metric <= VI_ATE_METRIC * extent
             and VI_SCALE_BAND[0] < scale < VI_SCALE_BAND[1] and k1 == N_VI
             and k3v_main == (N_VI - 1, N_VI - 1)
+            and k4_main == (N_VI - 1, N_VI - 1)
             and vi_launches["minimizer_rv"] == 0)
     steady = step_ms[5:]
     np.savez(os.path.join(OUT, "vi_path.npz"), pos=pos, kl=kl, est=est,
@@ -888,6 +1054,7 @@ def vi_path(smi, vi_dir, pos_true, write_s):
           "launches": vi_launches, "k1_launches": k1,
           "k1_launches_expected": N_VI,
           "k3v_launches_and_counter": list(k3v_main),
+          "k4_launches_and_counter": list(k4_main),
           "k3v_launches_expected": N_VI - 1, "kl_min": min(kl),
           "kl_floor": KL_FLOOR, "est_ok_share_after_2": est_share,
           "g_est": g.tolist(), "g_norm": float(np.linalg.norm(g)),
@@ -964,18 +1131,23 @@ def vi_path(smi, vi_dir, pos_true, write_s):
     k1_per = scan_launches["detect_candidates_cuda"] / n_rep
     k3 = scan_launches["minimizer_rv"]
     k3v_per = scan_launches["minimizer_v"] / n_rep
+    k4_per = scan_launches["correct_and_augment"] / n_rep
     samples = int(host_w[0].count.sum())      # the capture's windows
     counts = {"graph.captures": delta(c0, c1, "graph.captures"),
               "graph.replays": delta(c1, c2, "graph.replays"),
               "imu.samples": delta(c0, c1, "imu.samples"),
               "imu.truncated": delta(c0, c1, "imu.truncated"),
               "pose_v.kernel": delta(c0, c1, "pose_v.kernel"),
-              "pose_v.kernel_replays": delta(c1, c2, "pose_v.kernel")}
+              "pose_v.kernel_replays": delta(c1, c2, "pose_v.kernel"),
+              "kf.kernel": delta(c0, c1, "kf.kernel"),
+              "kf.kernel_replays": delta(c1, c2, "kf.kernel")}
     # the capture counts the warm-up's two steps and the captured ones
     ok10e = (d_state == 0 and d_outs == 0 and k1_per == VI_SCAN_N
-             and k3 == 0 and k3v_per == VI_SCAN_N
+             and k3 == 0 and k3v_per == VI_SCAN_N and k4_per == VI_SCAN_N
              and counts["pose_v.kernel"] == 2 + VI_SCAN_N
              and counts["pose_v.kernel_replays"] == 0
+             and counts["kf.kernel"] == 2 + VI_SCAN_N
+             and counts["kf.kernel_replays"] == 0
              and counts["graph.captures"] == 1
              and counts["graph.replays"] == n_rep
              and counts["imu.samples"] == samples
@@ -987,6 +1159,7 @@ def vi_path(smi, vi_dir, pos_true, write_s):
           "output_leaves_differing": d_outs, "launches": scan_launches,
           "k1_launches_per_replay": k1_per, "k3_launches": k3,
           "k3v_launches_per_replay": k3v_per,
+          "k4_launches_per_replay": k4_per,
           "counters": counts, "imu_samples_expected": samples,
           "compare": "bit for bit, NaN equal to NaN", "card": smi})
     if not ok10e:
@@ -1156,6 +1329,7 @@ def stereo_path(smi, st_dir, pos_true):
     ok11 = (finite and min(kl) >= KL_FLOOR and min(kl1) >= KL_FLOOR
             and all(st_ok) and est_share >= 0.9 and k1 == 2 * N_ST
             and st_launches["minimizer_rv"] == N_ST - 1
+            and st_launches["correct_and_augment"] == N_ST - 1
             and ST_SCALE_BAND[0] < scale < ST_SCALE_BAND[1]
             and ate_metric <= ST_ATE_METRIC * extent)
     steady = step_ms[5:]
@@ -1365,7 +1539,8 @@ def vosystem_phase(smi, p, frames, ts, pos4):
           and len(read_ms) == N_SYS - 1
           and bool(np.all(np.isfinite(costs))) and snap_ok
           and sys_launches["detect_candidates_cuda"] == N_SYS
-          and sys_launches["minimizer_rv"] == N_SYS - 1)
+          and sys_launches["minimizer_rv"] == N_SYS - 1
+          and sys_launches["correct_and_augment"] == N_SYS - 1)
     # frames 6 on (outs[j] is frame j + 1)
     diff = [a - b for a, b in zip(sys_ms[5:], step_ms[5:])]
     emit({"phase": "vosystem", "ok": ok, "frames": N_SYS,
@@ -1617,6 +1792,7 @@ def batched_phase(smi, p, kw):
     k1_launches = got["detect_candidates_cuda"]
     ok = (ok_lanes and k1_launches == n and mism == 0 and err < 5e-3
           and got["minimizer_rv"] == N_BATCH_STEPS
+          and got["correct_and_augment"] == N_BATCH_STEPS
           and bool(np.all(np.isfinite(bpos))))
     frames = N_LANES * N_BATCH_STEPS
     emit({"phase": "batched", "ok": ok, "lanes": N_LANES,
@@ -2301,6 +2477,11 @@ def main():
     if not ok3d:
         return 1
 
+    # ---- 3e. K4 against its plain version -------------------------------
+    k4, ok3e = k4_phase(smi, p, frames, info)
+    if not ok3e:
+        return 1
+
     # ---- 4. main path at full width -----------------------------------
     fe = VOFrontend(p, device="cuda")
     gpu_frames = torch.as_tensor(frames, device=dev)
@@ -2332,13 +2513,15 @@ def main():
     ok4 = (bool(np.all(np.isfinite(pos))) and min(kl) >= KL_FLOOR
            and est_share >= 0.9 and launches == N_FRAMES
            and main_launches["minimizer_rv"] == N_FRAMES - 1
-           and main_launches["minimizer_v"] == 0)
+           and main_launches["minimizer_v"] == 0
+           and main_launches["correct_and_augment"] == N_FRAMES - 1)
     steady = step_ms[5:]
     np.savez(os.path.join(OUT, "main_path.npz"), pos=pos, kl=kl, klm=klm,
              est=est, step_ms=step_ms)
     emit({"phase": "main_path", "ok": ok4, "frames": N_FRAMES,
           "launches": main_launches, "kl_min": min(kl),
-          "k3_launches_expected": N_FRAMES - 1, "kl_floor": KL_FLOOR,
+          "k3_launches_expected": N_FRAMES - 1,
+          "k4_launches_expected": N_FRAMES - 1, "kl_floor": KL_FLOOR,
           "klm_min": min(klm), "est_ok_share_after_2": est_share,
           "pos_finite": bool(np.all(np.isfinite(pos))),
           "ms_per_frame_median": statistics.median(steady),
@@ -2400,14 +2583,17 @@ def main():
         dpos = float(np.abs(spos - ref_pos).max())
         k1_per = got["detect_candidates_cuda"] / (N_SCAN // n)
         k3_per = got["minimizer_rv"] / (N_SCAN // n)
+        k4_per = got["correct_and_augment"] / (N_SCAN // n)
         ok_n = (skl == ref_kl and dpos <= tol4b and k1_per == n
-                and k3_per == n and got["minimizer_v"] == 0)
+                and k3_per == n and got["minimizer_v"] == 0
+                and k4_per == n)
         ok4b = ok4b and ok_n
         scan[f"n{n}"] = {"ok": ok_n, "replays": N_SCAN // n,
                          "ms_per_frame": ms, "kl_equal": skl == ref_kl,
                          "max_abs_pos_diff": dpos, "launches": got,
                          "k1_launches_per_replay": k1_per,
-                         "k3_launches_per_replay": k3_per}
+                         "k3_launches_per_replay": k3_per,
+                         "k4_launches_per_replay": k4_per}
     peak_graph_mb = torch.cuda.max_memory_allocated() / 2 ** 20
     # one N=8 replay under torch.profiler: the device's busy time per
     # frame inside the graph, and so its idle share on the graph path
@@ -2613,7 +2799,25 @@ def main():
             "vi_run_vo": vi_launches["vi_run_vo"]["minimizer_v"],
             **{k: v["minimizer_v"] for k, v in st_launches.items()},
             "vosystem": sys_launches["minimizer_v"],
-            "batched": batched_launches["minimizer_v"]}}]})
+            "batched": batched_launches["minimizer_v"]}}, {
+        "name": "kf_correct", "route": "cuda",
+        "source": "rebvo_tpu_torch/csrc/kf_correct.cu",
+        "replaces": None,
+        "replaces_function": "none: correct_and_augment's K-wide PyTorch "
+                             "ops (frontend/kf_tracking._body_plain)",
+        "launches": main_launches["correct_and_augment"], **k4,
+        "ms": k4["kernel_ms"], "bound_by": "bytes", "library_ms": None,
+        "launches_by_path": {
+            "main_path": main_launches["correct_and_augment"],
+            "scan_n8": scan["n8"]["launches"]["correct_and_augment"],
+            "scan_n2": scan["n2"]["launches"]["correct_and_augment"],
+            "bench": bench_launches["correct_and_augment"],
+            "vi_main": vi_launches["vi_main"]["correct_and_augment"],
+            "vi_scan_n8": vi_launches["vi_scan"]["correct_and_augment"],
+            "vi_run_vo": vi_launches["vi_run_vo"]["correct_and_augment"],
+            **{k: v["correct_and_augment"] for k, v in st_launches.items()},
+            "vosystem": sys_launches["correct_and_augment"],
+            "batched": batched_launches["correct_and_augment"]}}]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,
                                  "count": torch.cuda.device_count()}})

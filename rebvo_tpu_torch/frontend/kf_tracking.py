@@ -8,17 +8,32 @@ coordinate descent over the whole keyline batch, and augmentation is
 bounded parallel label propagation followed by a global epipolar prune.
 The JAX package's `fori_loop`s are Python loops with the same fixed
 counts.
+
+`correct_and_augment`'s K-wide body (both directions' walks, the
+augmentation, the inversion, the prunes and the counts) is, on CUDA
+tensors, one launch of K4, the hand-written kernel `csrc/kf_correct.cu`
+(built by `nvcc` at first use), through the custom op
+`rebvo_tpu_torch::kf_correct`, whose vmap rule hands every vmapped lane
+to that one launch. On CPU tensors the op runs the plain version,
+`_body_plain` (lane by lane under vmap). There is no fallback from the
+card to the plain version. The block's scalars (the essential matrices,
+the baseline tests) stay plain ops.
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple, Tuple
+import ctypes
+import functools
+import math
+from typing import Callable, NamedTuple, Tuple
 
 import torch
 
+from rebvo_tpu_torch import obs
 from rebvo_tpu_torch.core.geometry import skew, so3_exp
 from rebvo_tpu_torch.core.numerics import matmul, sum64
 from rebvo_tpu_torch.frontend.state import KeylineMap, select_map
+from rebvo_tpu_torch.kernels import cuda_build
 
 Tensor = torch.Tensor
 
@@ -146,6 +161,230 @@ def kf_relative_pose(kf: KFCarry, Pose: Tensor, Pos: Tensor):
     return matmul(Pose.T, kf.Pose), matmul(Pose.T, kf.Pos - Pos)
 
 
+class _Target(NamedTuple):
+    """The fields of a target map that chain_correct reads."""
+
+    px: Tensor
+    py: Tensor
+    p_id: Tensor
+    n_id: Tensor
+
+
+def _scalars(kf: KFCarry, klm: KeylineMap, Pose: Tensor, Pos: Tensor,
+             zfm: float, min_baseline_px: float):
+    """The block's per-frame scalars: the backward and forward essential
+    matrices and baseline tests (E_b, E_f, strong_b, strong_f)."""
+    nv = torch.clamp(torch.sum(klm.valid, dtype=torch.int32), min=1)
+    rho_mean = sum64(torch.where(klm.valid, klm.rho,
+                                 torch.zeros_like(klm.rho))) / nv
+    # backward direction: frame keylines -> KF map
+    R_b = matmul(kf.Pose.T, Pose)
+    t_b = matmul(Pose.T, kf.Pos - Pos)
+    E_b = essential_matrix(R_b, t_b)
+    strong_b = zfm * torch.linalg.norm(t_b) * rho_mean > min_baseline_px
+    # forward direction: KF keylines -> frame map
+    R_f = matmul(Pose.T, kf.Pose)
+    t_f = matmul(kf.Pose.T, Pos - kf.Pos)
+    E_f = essential_matrix(R_f, t_f)
+    strong_f = zfm * torch.linalg.norm(t_f) * rho_mean > min_baseline_px
+    return E_b, E_f, strong_b, strong_f
+
+
+def _fields(klm: KeylineMap, kf_klm: KeylineMap):
+    """The maps' fields K4 reads, in _INPUTS' order after the scalars."""
+    return (klm.px, klm.py, klm.p_id, klm.n_id, klm.valid, klm.m_id_kf,
+            klm.m_id, kf_klm.px, kf_klm.py, kf_klm.p_id, kf_klm.n_id,
+            kf_klm.valid, kf_klm.m_id_f)
+
+
+def _body_plain(E_b, E_f, strong_b, strong_f, px, py, p_id, n_id, valid,
+                m_id_kf, m_id, kf_px, kf_py, kf_p_id, kf_n_id, kf_valid,
+                kf_m_id_f, *, zfm: float, dist_thresh: float,
+                chain_steps: int, aug_iters: int):
+    """K4's plain version on one lane: the block's K-wide body given its
+    scalars. Returns (m_f, m_kf, [fow_m, back_m])."""
+    neg = torch.full_like(m_id_kf, -1)
+    kf_tgt = _Target(kf_px, kf_py, kf_p_id, kf_n_id)
+    frame_tgt = _Target(px, py, p_id, n_id)
+
+    # backward direction: frame keylines -> KF map
+    m_raw = torch.where(valid, m_id_kf, neg)
+    m_kf, _ = chain_correct(px, py, m_id_kf, kf_tgt, E_b, zfm, chain_steps)
+    m_kf = augment_matches(m_kf, p_id, n_id, aug_iters)
+    m_kf, d_b = chain_correct(px, py, m_kf, kf_tgt, E_b, zfm, chain_steps)
+    m_kf = torch.where((d_b > dist_thresh) | (~valid), neg, m_kf)
+    m_kf = torch.where(strong_b, m_kf, m_raw)
+    back_m = torch.sum(m_kf >= 0, dtype=torch.int32)
+
+    # forward direction: KF keylines -> frame map, rebuilt each frame
+    # through the inverted new->old back matches (kfvo.cpp:739-771)
+    inv_old_to_new = invert_matches(m_id, valid, m_id.shape[-1])
+    m_f = build_forward_match(kf_m_id_f, kf_valid, inv_old_to_new)
+    m_f_raw = m_f
+    m_f, _ = chain_correct(kf_px, kf_py, m_f, frame_tgt, E_f, zfm,
+                           chain_steps)
+    m_f = augment_matches(m_f, kf_p_id, kf_n_id, aug_iters)
+    m_f, d_f = chain_correct(kf_px, kf_py, m_f, frame_tgt, E_f, zfm,
+                             chain_steps)
+    m_f = torch.where((d_f > dist_thresh) | (~kf_valid),
+                      torch.full_like(m_f, -1), m_f)
+    m_f = torch.where(strong_f, m_f, m_f_raw)
+    fow_m = torch.sum(m_f >= 0, dtype=torch.int32)
+    return m_f, m_kf, torch.stack([fow_m, back_m])
+
+
+def correct_and_augment_plain(kf: KFCarry, klm: KeylineMap, Pose: Tensor,
+                              Pos: Tensor, zfm: float, *,
+                              dist_thresh: float, chain_steps: int,
+                              aug_iters: int, min_baseline_px: float = 2.0):
+    """The per-frame maintenance block (rebvo_second_t.cpp:429-444) in
+    plain PyTorch ops: K4's plain version, with correct_and_augment's
+    signature and results."""
+    m_f, m_kf, counts = _body_plain(
+        *_scalars(kf, klm, Pose, Pos, zfm, min_baseline_px),
+        *_fields(klm, kf.klm), zfm=zfm, dist_thresh=dist_thresh,
+        chain_steps=chain_steps, aug_iters=aug_iters)
+    return m_f, m_kf, counts[0], counts[1]
+
+
+# ---------------------------------------------------------------------------
+# K4: the K-wide body in one launch (csrc/kf_correct.cu)
+# ---------------------------------------------------------------------------
+
+# K4's inputs, in the order of the C launcher and the op: (name, dtype,
+# trailing shape, or None where it is the keyline count K)
+_F32, _I32, _BOOL = torch.float32, torch.int32, torch.bool
+_INPUTS = (("E_b", _F32, (3, 3)), ("E_f", _F32, (3, 3)),
+           ("strong_b", _BOOL, ()), ("strong_f", _BOOL, ()),
+           ("px", _F32, None), ("py", _F32, None), ("p_id", _I32, None),
+           ("n_id", _I32, None), ("valid", _BOOL, None),
+           ("m_id_kf", _I32, None), ("m_id", _I32, None),
+           ("kf_px", _F32, None), ("kf_py", _F32, None),
+           ("kf_p_id", _I32, None), ("kf_n_id", _I32, None),
+           ("kf_valid", _BOOL, None), ("kf_m_id_f", _I32, None))
+_N_TENSORS = len(_INPUTS)
+
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+# kf_correct_launch: 17 inputs, m_f, m_kf, counts; L, K, chain_steps,
+# aug_iters; zfm, dist_thresh; stream
+K4_ARGTYPES = [_P] * 20 + [_I] * 4 + [_F] * 2 + [_P]
+
+
+def kf_launch(launch: Callable[..., int], tensors, stream, *, zfm: float,
+              dist_thresh: float, chain_steps: int, aug_iters: int
+              ) -> Tuple[Tensor, Tensor, Tensor]:
+    """K4 through its C entry point `launch` (argument types K4_ARGTYPES)
+    on `tensors`, the inputs in _INPUTS' order, each with the same leading
+    lane axes (none for one lane). Returns m_f, m_kf [..., K] and the
+    counts [..., 2] (fow_m, back_m); raises on an input the kernel does
+    not take, or if the launcher refuses. The wrapper passes the card's
+    entry point; the tests a host build of the same source."""
+    who = "correct_and_augment"
+    if len(tensors) != _N_TENSORS:
+        raise ValueError(f"{who}: takes {_N_TENSORS} inputs, got "
+                         f"{len(tensors)}")
+    E_b = tensors[0]
+    if not isinstance(E_b, Tensor) or E_b.ndim < 2:
+        raise TypeError(f"{who}: E_b must be a [..., 3, 3] tensor")
+    lanes = tuple(E_b.shape[:-2])
+    px = tensors[4]
+    K = px.shape[-1] if isinstance(px, Tensor) and px.ndim > len(lanes) \
+        else -1
+    flat = []
+    for (name, dtype, tail), t in zip(_INPUTS, tensors):
+        tail = (K,) if tail is None else tail
+        if not isinstance(t, Tensor) or t.dtype != dtype:
+            raise TypeError(f"{who}: {name} must be a {dtype} tensor")
+        if t.device != E_b.device:
+            raise ValueError(f"{who}: {name} is on {t.device}, E_b on "
+                             f"{E_b.device}")
+        if tuple(t.shape) != lanes + tuple(tail):
+            raise ValueError(f"{who}: {name} has shape {tuple(t.shape)}, "
+                             f"expected {lanes + tuple(tail)}")
+        flat.append(t.contiguous())
+    L = math.prod(lanes)
+    if K < 1 or L < 1:
+        raise ValueError(f"{who}: needs K >= 1 slots and a lane, got "
+                         f"K={K}, lanes {lanes}")
+    dev = E_b.device
+    m_f = torch.empty(lanes + (K,), dtype=torch.int32, device=dev)
+    m_kf = torch.empty(lanes + (K,), dtype=torch.int32, device=dev)
+    counts = torch.empty(lanes + (2,), dtype=torch.int32, device=dev)
+    err = launch(*[t.data_ptr() for t in flat], m_f.data_ptr(),
+                 m_kf.data_ptr(), counts.data_ptr(), L, K, chain_steps,
+                 aug_iters, zfm, dist_thresh, stream)
+    if err != 0:
+        raise RuntimeError(f"kf_correct kernel launch failed: cudaError "
+                           f"{err}")
+    return m_f, m_kf, counts
+
+
+@functools.cache
+def _launcher():
+    """K4's C entry point, built and loaded at first use."""
+    fn = cuda_build.library("kf_correct").kf_correct_launch
+    fn.argtypes = K4_ARGTYPES
+    fn.restype = ctypes.c_int
+    return fn
+
+
+@torch.library.custom_op("rebvo_tpu_torch::kf_correct", mutates_args=())
+def _kf_op(E_b: Tensor, E_f: Tensor, strong_b: Tensor, strong_f: Tensor,
+           px: Tensor, py: Tensor, p_id: Tensor, n_id: Tensor,
+           valid: Tensor, m_id_kf: Tensor, m_id: Tensor, kf_px: Tensor,
+           kf_py: Tensor, kf_p_id: Tensor, kf_n_id: Tensor,
+           kf_valid: Tensor, kf_m_id_f: Tensor, zfm: float,
+           dist_thresh: float, chain_steps: int, aug_iters: int
+           ) -> Tuple[Tensor, Tensor, Tensor]:
+    """K4 on the CUDA device, its plain version on the CPU: m_f, m_kf
+    [..., K] and the counts [..., 2] of every lane (leading axes of
+    E_b)."""
+    tensors = (E_b, E_f, strong_b, strong_f, px, py, p_id, n_id, valid,
+               m_id_kf, m_id, kf_px, kf_py, kf_p_id, kf_n_id, kf_valid,
+               kf_m_id_f)
+    kw = dict(zfm=zfm, dist_thresh=dist_thresh, chain_steps=chain_steps,
+              aug_iters=aug_iters)
+    if E_b.device.type == "cpu":
+        lanes = E_b.shape[:-2]
+        if not lanes:
+            return _body_plain(*tensors, **kw)
+        flat = [t.reshape((-1,) + t.shape[len(lanes):]) for t in tensors]
+        outs = [_body_plain(*[t[i] for t in flat], **kw)
+                for i in range(flat[0].shape[0])]
+        return tuple(torch.stack(o).reshape(lanes + o[0].shape)
+                     for o in zip(*outs))
+    if E_b.device.type != "cuda":
+        raise ValueError(f"correct_and_augment: unsupported device "
+                         f"{E_b.device}")
+    out = kf_launch(_launcher(), tensors,
+                    torch.cuda.current_stream(E_b.device).cuda_stream, **kw)
+    correct_and_augment.launches += 1
+    obs.count("kf.kernel")
+    return out
+
+
+@_kf_op.register_fake
+def _kf_fake(E_b, E_f, strong_b, strong_f, px, *rest):
+    lanes = E_b.shape[:-2]
+    K = px.shape[-1]
+    i32 = dict(dtype=torch.int32)
+    return (px.new_empty(lanes + (K,), **i32),
+            px.new_empty(lanes + (K,), **i32),
+            px.new_empty(lanes + (2,), **i32))
+
+
+def _kf_vmap(info, in_dims, *args):
+    """vmap rule of K4: every lane's inputs in one call (one launch on the
+    card), an unbatched input expanded over the lanes."""
+    B = info.batch_size
+    ts = [t.movedim(d, 0) if d is not None else t.expand((B,) + t.shape)
+          for t, d in zip(args[:_N_TENSORS], in_dims[:_N_TENSORS])]
+    return _kf_op(*ts, *args[_N_TENSORS:]), (0, 0, 0)
+
+
+torch.library.register_vmap("rebvo_tpu_torch::kf_correct", _kf_vmap)
+
+
 def correct_and_augment(kf: KFCarry, klm: KeylineMap, Pose: Tensor,
                         Pos: Tensor, zfm: float, *, dist_thresh: float,
                         chain_steps: int, aug_iters: int,
@@ -153,46 +392,20 @@ def correct_and_augment(kf: KFCarry, klm: KeylineMap, Pose: Tensor,
     """The per-frame maintenance block (rebvo_second_t.cpp:429-444):
     forward chains through the inverted back matches, epipolar correct +
     augment + prune in both directions, skipped below a degenerate
-    baseline. Returns (kf m_id_f, frame m_id_kf, fow_m, back_m)."""
-    nv = torch.clamp(torch.sum(klm.valid, dtype=torch.int32), min=1)
-    rho_mean = sum64(torch.where(klm.valid, klm.rho,
-                                 torch.zeros_like(klm.rho))) / nv
-    neg = torch.full_like(klm.m_id_kf, -1)
+    baseline. Returns (kf m_id_f, frame m_id_kf, fow_m, back_m). The
+    scalars are plain ops; the K-wide body is, on CUDA tensors, one launch
+    of K4, which adds one to `correct_and_augment.launches` and to the
+    counter `kf.kernel`, and on CPU tensors its plain version
+    (`correct_and_augment_plain` computes the same in plain ops alone).
+    fow_m and back_m are views of one counts tensor."""
+    m_f, m_kf, counts = _kf_op(
+        *_scalars(kf, klm, Pose, Pos, zfm, min_baseline_px),
+        *_fields(klm, kf.klm), float(zfm), float(dist_thresh),
+        int(chain_steps), int(aug_iters))
+    return m_f, m_kf, counts[..., 0], counts[..., 1]
 
-    # backward direction: frame keylines -> KF map
-    R_b = matmul(kf.Pose.T, Pose)
-    t_b = matmul(Pose.T, kf.Pos - Pos)
-    E_b = essential_matrix(R_b, t_b)
-    strong_b = zfm * torch.linalg.norm(t_b) * rho_mean > min_baseline_px
-    m_raw = torch.where(klm.valid, klm.m_id_kf, neg)
-    m_kf, _ = chain_correct(klm.px, klm.py, klm.m_id_kf, kf.klm, E_b, zfm,
-                            chain_steps)
-    m_kf = augment_matches(m_kf, klm.p_id, klm.n_id, aug_iters)
-    m_kf, d_b = chain_correct(klm.px, klm.py, m_kf, kf.klm, E_b, zfm,
-                              chain_steps)
-    m_kf = torch.where((d_b > dist_thresh) | (~klm.valid), neg, m_kf)
-    m_kf = torch.where(strong_b, m_kf, m_raw)
-    back_m = torch.sum(m_kf >= 0, dtype=torch.int32)
 
-    # forward direction: KF keylines -> frame map, rebuilt each frame
-    # through the inverted new->old back matches (kfvo.cpp:739-771)
-    R_f = matmul(Pose.T, kf.Pose)
-    t_f = matmul(kf.Pose.T, Pos - kf.Pos)
-    E_f = essential_matrix(R_f, t_f)
-    strong_f = zfm * torch.linalg.norm(t_f) * rho_mean > min_baseline_px
-    inv_old_to_new = invert_matches(klm.m_id, klm.valid, klm.K)
-    m_f = build_forward_match(kf.klm.m_id_f, kf.klm.valid, inv_old_to_new)
-    m_f_raw = m_f
-    m_f, _ = chain_correct(kf.klm.px, kf.klm.py, m_f, klm, E_f, zfm,
-                           chain_steps)
-    m_f = augment_matches(m_f, kf.klm.p_id, kf.klm.n_id, aug_iters)
-    m_f, d_f = chain_correct(kf.klm.px, kf.klm.py, m_f, klm, E_f, zfm,
-                             chain_steps)
-    m_f = torch.where((d_f > dist_thresh) | (~kf.klm.valid),
-                      torch.full_like(m_f, -1), m_f)
-    m_f = torch.where(strong_f, m_f, m_f_raw)
-    fow_m = torch.sum(m_f >= 0, dtype=torch.int32)
-    return m_f, m_kf, fow_m, back_m
+correct_and_augment.launches = 0
 
 
 def track_keyframe(kf: KFCarry, klm: KeylineMap, fv, Pose: Tensor,

@@ -36,7 +36,8 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "--fmad=false", "-shared", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v"]
 
-SOURCES = ("detect_candidates", "build_scale_space", "pose_lm")
+SOURCES = ("detect_candidates", "build_scale_space", "pose_lm",
+           "kf_correct")
 
 
 def _nvcc() -> str:

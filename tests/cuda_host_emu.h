@@ -1,11 +1,12 @@
 // Host emulation of the CUDA subset the kernels use
-// (rebvo_tpu_torch/csrc/tile_pipeline.cuh, csrc/pose_lm.cu), so that g++
-// compiles and runs the kernels' own source on the CPU: a block's CUDA
-// threads are std::threads, __syncthreads is a std::barrier, the block's
-// shared memory is a buffer filled with NaNs (a read of a cell no phase
-// wrote shows in the output). A thread-block cluster's blocks run at once,
-// with a barrier over all their threads and each other's shared memory;
-// a warp's shuffle-tree sum is a per-warp buffer summed in the tree's
+// (rebvo_tpu_torch/csrc/tile_pipeline.cuh, csrc/pose_lm.cu,
+// csrc/kf_correct.cu), so that g++ compiles and runs the kernels' own
+// source on the CPU: a block's CUDA threads are std::threads,
+// __syncthreads is a std::barrier, the block's shared memory is a buffer
+// filled with NaNs (a read of a cell no phase wrote shows in the output).
+// A thread-block cluster's blocks run at once, with a barrier over all
+// their threads, each other's shared memory and integer atomics on it; a
+// warp's shuffle-tree sum is a per-warp buffer summed in the tree's
 // order. Float operations are IEEE single precision, built with
 // -ffp-contract=off so no multiply and add fuse, as the card's --fmad=false.
 //
@@ -17,6 +18,7 @@
 #include <stdint.h>
 #include <string.h>
 
+#include <atomic>
 #include <barrier>
 #include <limits>
 #include <memory>
@@ -112,6 +114,19 @@ inline cudaError_t launch_kernel(void (*k)(P...), dim3 grid, dim3 block,
         for (std::thread& t : threads) t.join();
       }
   return cudaSuccess;
+}
+
+// Integer atomics on shared memory, this block's or another's of the
+// cluster (the card's atomicAdd and atomicMax on a shared address).
+inline int atomicAdd(int* p, int v) {
+  return std::atomic_ref<int>(*p).fetch_add(v);
+}
+inline int atomicMax(int* p, int v) {
+  std::atomic_ref<int> a(*p);
+  int old = a.load();
+  while (old < v && !a.compare_exchange_weak(old, v)) {
+  }
+  return old;
 }
 
 // Thread-block clusters (launch_cluster_kernel).

@@ -1,12 +1,13 @@
-"""Host build of the CUDA kernels K1, K2 and K3 for the CPU tests.
+"""Host build of the CUDA kernels K1, K2, K3 and K4 for the CPU tests.
 
 `library()` compiles `tests/tile_host.cpp`, which includes the kernel
 sources of `rebvo_tpu_torch/csrc` and their launchers, with g++ under
 `tests/cuda_host_emu.h` into `build/host_emu/` at the repository root
 (once per hash of the sources and flags), and loads it with ctypes.
-`detect`, `sspace` and `pose` run the kernels through the CUDA wrappers'
-own launch paths (`cuda_scale_space.detect_launch`, `sspace_launch`,
-`pose_solver.pose_launch`) on CPU tensors.
+`detect`, `sspace`, `pose` and `kf` run the kernels through the CUDA
+wrappers' own launch paths (`cuda_scale_space.detect_launch`,
+`sspace_launch`, `pose_solver.pose_launch`, `kf_tracking.kf_launch`) on
+CPU tensors.
 """
 
 from __future__ import annotations
@@ -19,6 +20,7 @@ import shutil
 import subprocess
 from pathlib import Path
 
+from rebvo_tpu_torch.frontend import kf_tracking as kft
 from rebvo_tpu_torch.kernels import cuda_scale_space as cs
 from rebvo_tpu_torch.kernels import pose_solver as ps
 
@@ -58,9 +60,10 @@ def library() -> ctypes.CDLL:
     lib.build_scale_space_launch.argtypes = cs.K2_ARGTYPES
     lib.pose_lm_launch.argtypes = ps.K3_ARGTYPES
     lib.pose_v_launch.argtypes = ps.K3_ARGTYPES
+    lib.kf_correct_launch.argtypes = kft.K4_ARGTYPES
     for fn in (lib.detect_candidates_launch, lib.build_scale_space_launch,
-               lib.pose_lm_launch, lib.pose_v_launch, lib.tile_reciprocals,
-               lib.tile_table_shape):
+               lib.pose_lm_launch, lib.pose_v_launch, lib.kf_correct_launch,
+               lib.tile_reciprocals, lib.tile_table_shape):
         fn.restype = ctypes.c_int
     return lib
 
@@ -84,3 +87,9 @@ def pose(tensors, dof=6, **kw):
     lib = library()
     launch = lib.pose_lm_launch if dof == 6 else lib.pose_v_launch
     return ps.pose_launch(launch, tensors, None, dof=dof, **kw)
+
+
+def kf(tensors, **kw):
+    """K4's host build on CPU inputs (kf_tracking._INPUTS' order), as the
+    card's `correct_and_augment`: m_f, m_kf and the counts."""
+    return kft.kf_launch(library().kf_correct_launch, tensors, None, **kw)
