@@ -98,7 +98,10 @@ class Unit(NamedTuple):
 class Reference:
     """The plain step on `device`, built from the cell's parameters.
     `system=True` adds the embedded system's host layer (the keyframe
-    store and the pose-graph log, vobench.reference.system).
+    store and the pose-graph log, vobench.reference.system). A stereo
+    configuration (StereoAvaiable) steps each frame with its cam1 frame
+    from `frames_pair`, undistorted through cam1's own map; it needs
+    them, and it has no system layer: either lack raises ValueError.
 
     `variant` puts a stand-in in the program's place:
       "bf16"     the control: the carried state's float leaves and each
@@ -111,7 +114,8 @@ class Reference:
 
     def __init__(self, params: dict, device, frames: Tensor,
                  imu_rows: Optional[np.ndarray] = None,
-                 variant: Optional[str] = None, system: bool = False):
+                 variant: Optional[str] = None, system: bool = False,
+                 frames_pair: Optional[Tensor] = None):
         from vobench.reference.config import REBVOParameters
         from vobench.reference.frontend.step import VOFrontend
         from vobench.reference.io.undistort import build_undistort_map
@@ -123,6 +127,19 @@ class Reference:
         self.umap = (build_undistort_map(self.fe.cam, device=self.device)
                      if self.params.useUndistort else None)
         self.frames = frames            # [L, P, H, W] uint8, host
+        self.stereo = bool(self.params.StereoAvaiable)
+        if self.stereo and frames_pair is None:
+            raise ValueError("a stereo configuration (StereoAvaiable=1) "
+                             "needs cam1's frames (frames_pair)")
+        if self.stereo and system:
+            raise ValueError("the reference has no stereo system layer: a "
+                             "stereo configuration cannot be checked with "
+                             "system=True")
+        self.umap_pair = (build_undistort_map(self.fe.cam_pair,
+                                              device=self.device)
+                          if self.stereo and self.params.useUndistort
+                          else None)
+        self.frames_pair = frames_pair  # cam1's [L, P, H, W] uint8, host
         self.imu_rows = imu_rows
         self.variant = variant
         self.system = system
@@ -140,11 +157,21 @@ class Reference:
     def frame(self, lane: int, idx: int) -> Tensor:
         """Period frame `idx` of scene lane `lane`, on the intensity scale
         of the program's dataset reader (8 bits x 3), undistorted."""
+        return self._image(self.frames, self.umap, lane, idx)
+
+    def frame_pair(self, lane: int, idx: int) -> Optional[Tensor]:
+        """cam1's frame of the same period index, as `frame` makes cam0's
+        (perturbed alike), undistorted through cam1's map; None in mono."""
+        if not self.stereo:
+            return None
+        return self._image(self.frames_pair, self.umap_pair, lane, idx)
+
+    def _image(self, frames, umap, lane, idx):
         from vobench.reference.io.undistort import apply_undistort
-        f = self.frames[lane, idx].to(self.device, torch.float32) * 3.0
+        f = frames[lane, idx].to(self.device, torch.float32) * 3.0
         if self._perturbs:
             f = self._perturb(f)
-        return apply_undistort(self.umap, f) if self.umap is not None else f
+        return apply_undistort(umap, f) if umap is not None else f
 
     def window(self, t_prev: float, t: float):
         from vobench.reference.io.imu_windows import (imu_window_size,
@@ -187,7 +214,8 @@ class Reference:
         sysd = None
         if state is None:
             (idx, t), frames = frames[0], frames[1:]
-            st = fe.bootstrap(fe.init(), self.frame(lane, idx), t)
+            st = fe.bootstrap(fe.init(), self.frame(lane, idx), t,
+                              frame_pair=self.frame_pair(lane, idx))
             t_prev = t
             if self.system:
                 sysd = system.after_bootstrap(system.empty(self.params
@@ -205,11 +233,12 @@ class Reference:
                     int(state["state.frame_count"]))
         for idx, t in frames:
             st = self._round(st)
-            f = self.frame(lane, idx)
+            f, pair = self.frame(lane, idx), self.frame_pair(lane, idx)
             if self.params.ImuMode:
-                st, o = fe.step_imu(st, f, t, self.window(t_prev, t))
+                st, o = fe.step_imu(st, f, t, self.window(t_prev, t),
+                                    frame_pair=pair)
             else:
-                st, o = fe.step(st, f, t)
+                st, o = fe.step(st, f, t, frame_pair=pair)
             o_named = snapshot(o, "out", None)
             if sysd is not None:
                 sysd, meas = system.after_step(sysd, st, o)

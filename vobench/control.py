@@ -11,11 +11,15 @@ leaves and frames moved by one float32 ulp instead ("nudge"). Several
 seeds share one process.
 
     python -m vobench.control --workload NAME --seeds 1,2,3 --seconds 6 \\
-        [--out control.jsonl]
+        [--params JSON] [--traffic JSON] [--out control.jsonl]
 
-Prints one JSON line per seed: {"workload", "seed", "program": {...},
-"control": {...}, "reorder": {...}, "nudge": {...}, "units_checked",
-"seconds"}.
+`--params` and `--traffic` replace entries of the cell's parameters and
+traffic, for readings of a path that no cell runs yet (the stereo
+runner: --params '{"StereoAvaiable": 1}' --traffic '{"runner":
+"stereo"}'). Prints one JSON line per seed: {"workload", "seed",
+"program": {...}, "control": {...}, "reorder": {...}, "nudge": {...},
+"units_checked", "unit_ms", "seconds"}; `unit_ms` holds the window's
+unit times (ms) at the 5th, 50th and 95th percentiles.
 """
 
 from __future__ import annotations
@@ -29,6 +33,7 @@ import json  # noqa: E402
 import sys  # noqa: E402
 
 from vobench import run  # noqa: E402
+from vobench.stats import percentile  # noqa: E402
 
 
 def main(argv=None) -> int:
@@ -36,6 +41,8 @@ def main(argv=None) -> int:
     ap.add_argument("--workload", required=True)
     ap.add_argument("--seeds", required=True)
     ap.add_argument("--seconds", type=float, default=6.0)
+    ap.add_argument("--params", type=json.loads, default=None)
+    ap.add_argument("--traffic", type=json.loads, default=None)
     ap.add_argument("--out")
     args = ap.parse_args(argv)
     run.set_process()
@@ -48,12 +55,15 @@ def main(argv=None) -> int:
         for seed in [int(x) for x in args.seeds.split(",")]:
             t0 = time.perf_counter()
             r = run.drive(args.workload, seed, args.seconds, False, "cuda",
-                          t_start=t0)
+                          params_update=args.params,
+                          traffic_update=args.traffic, t_start=t0)
             prog, note = run.correctness(r)
             line = {"workload": args.workload, "seed": seed,
                     "program": prog, "units_checked": len(r.units),
                     "setup_s": r.reading.setup_s,
-                    "window_frames": r.reading.frames}
+                    "window_frames": r.reading.frames,
+                    "unit_ms": {q: percentile(r.reading.extras["unit_s"], q)
+                                * 1e3 for q in (5, 50, 95)}}
             line["control"], _ = run.correctness(r, "bf16")
             line["reorder"], _ = run.correctness(r, "reorder")
             line["nudge"], _ = run.correctness(r, "nudge")

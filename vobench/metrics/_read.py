@@ -34,12 +34,14 @@ def span_ms_per_frame(r, name):
 
 
 def k1_roofline_pct(r, kernel="detect_kernel"):
-    """K1's byte bound for the traced frames over K1's device time."""
+    """K1's byte bound for the traced images over K1's device time: a
+    lane-frame is `images_per_frame` images (a stereo pair, 2), each
+    detected by K1 whatever runs it."""
     t = traced(r)
     if t is None:
         return None
     k1_s = sum(s for n, s in t.ops.items() if kernel in n)
     if k1_s <= 0:
         return None
-    return 100.0 * peaks.k1_bound_s(r.traced_frames, r.height,
-                                    r.width) / k1_s
+    return 100.0 * peaks.k1_bound_s(r.traced_frames * r.images_per_frame,
+                                    r.height, r.width) / k1_s

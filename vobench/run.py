@@ -8,7 +8,8 @@ its traffic (vobench/traffic/<traffic>.json, read by the one generator
 in vobench/scene.py and driven by vobench/runners/<runner>.py). The run
 
   1. makes the inputs from --seed on the card: one period of 8-bit
-     camera frames per lane (and, visual-inertial, the IMU samples);
+     camera frames per lane (with StereoAvaiable, cam1's frames of the
+     same period as well; visual-inertial, the IMU samples);
   2. builds the program (rebvo_tpu_torch) and warms up every shape the
      traffic uses: set-up, timed from the process start to the first
      timed frame (setup_s);
@@ -122,6 +123,7 @@ class Context(NamedTuple):
     phases: List[int]            # each lane's starting period frame
     fps: float
     t0: float
+    host_pair: Optional[object] = None   # cam1's [L, P, H, W] as `host`
 
     def t(self, i: int) -> float:
         """Time stamp (s) of run frame i."""
@@ -133,9 +135,23 @@ class Context(NamedTuple):
         return frame_index(i, self.hold, self.period, self.phases[lane])
 
 
-def make_inputs(params_dict: dict, traffic: dict, seed: int, device):
-    """(u8 frames [L, P, H, W] on `device`, IMU rows or None, hold,
-    period, phases): the traffic's inputs, rendered on `device`."""
+class Inputs(NamedTuple):
+    """The traffic's inputs, rendered on the device."""
+
+    frames: object               # [L, P, H, W] uint8, cam0
+    imu: Optional[object]        # [S, 7] EuRoC IMU rows, or None
+    hold: int
+    period: int
+    phases: List[int]
+    pair: Optional[object]       # [L, P, H, W] uint8, cam1 (stereo), or None
+
+
+def make_inputs(params_dict: dict, traffic: dict, seed: int,
+                device) -> Inputs:
+    """The traffic's inputs, rendered on `device`. With StereoAvaiable
+    each lane's cam1 period is rendered too: the same scene seen from
+    cam1's poses (the configuration's cam0 -> cam1 extrinsics), through
+    cam1's own intrinsics and distortion."""
     import numpy as np
     import torch
 
@@ -163,7 +179,17 @@ def make_inputs(params_dict: dict, traffic: dict, seed: int, device):
             spec, hold / p.config_fps, -0.1, (n + 1) / p.config_fps,
             traffic["t0"], im["gyro_noise_density"],
             im["accel_noise_density"], rng)
-    return frames, imu, hold, period, scene.lane_phases(lanes, period)
+    pair = None
+    if p.StereoAvaiable:
+        cam1 = CameraModel.from_params(p, stereo=True)
+        rm1 = scene.resample_map(cam1)
+        pos1, rot1 = scene.pair_poses(*p.stereo_extrinsics(), pos, rot)
+        pair = torch.stack([
+            scene.camera_frames(scene.scene_seed(seed, b), pos1, rot1, cam1,
+                                device, rm1)
+            for b in range(lanes)])
+    return Inputs(frames, imu, hold, period,
+                  scene.lane_phases(lanes, period), pair)
 
 
 class Reading(NamedTuple):
@@ -180,6 +206,7 @@ class Reading(NamedTuple):
     height: int
     width: int
     extras: dict
+    images_per_frame: int = 1    # camera images a lane-frame (stereo: 2)
 
 
 def check_spacing(seed: int, traffic: dict) -> List[int]:
@@ -206,6 +233,7 @@ class Run(NamedTuple):
     failed: int
     memory_peak_bytes: int
     setup_parts: Dict[str, float]
+    frames_pair_u8: Optional[object] = None   # cam1's [L, P, H, W], or None
 
 
 def drive(name: str, seed: int, seconds: float, trace: bool, device,
@@ -230,18 +258,23 @@ def drive(name: str, seed: int, seconds: float, trace: bool, device,
     on_cuda = device.type == "cuda"
 
     t_in = time.perf_counter()
-    frames_dev, imu, hold, period, phases = make_inputs(
-        params_dict, cell.traffic, seed, device)
+    inp = make_inputs(params_dict, cell.traffic, seed, device)
+    imu, hold, period, phases = inp.imu, inp.hold, inp.period, inp.phases
     # the frames as the program's dataset reader hands them (8 bits x 3)
-    host = (frames_dev.to(torch.float32) * 3.0).cpu()
-    frames_u8 = frames_dev.cpu()
-    del frames_dev
+    host = (inp.frames.to(torch.float32) * 3.0).cpu()
+    frames_u8 = inp.frames.cpu()
+    host_pair = pair_u8 = None
+    if inp.pair is not None:
+        host_pair = (inp.pair.to(torch.float32) * 3.0).cpu()
+        pair_u8 = inp.pair.cpu()
+    del inp
     if on_cuda:     # the peak is the program's: from here on
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
     t_prog = time.perf_counter()
     ctx = Context(params, cell.traffic, device, host, imu, hold,
-                  period, phases, params.config_fps, cell.traffic["t0"])
+                  period, phases, params.config_fps, cell.traffic["t0"],
+                  host_pair)
     drv = load_module(HERE / "runners" /
                       f"{cell.traffic['runner']}.py").Runner(ctx)
     drv.setup()
@@ -311,16 +344,18 @@ def drive(name: str, seed: int, seconds: float, trace: bool, device,
                                 drv.outputs()))
         it += 1
     drv.close()
-    del drv, ctx, host
+    del drv, ctx, host, host_pair
     if on_cuda:
         torch.cuda.empty_cache()
     extras["unit_s"] = unit_s
     reading = Reading(window_s, frames_done, lat, setup_s, len(unit_s),
                       summary,
                       traced_frames, tr_cfg["units"], params.ImageHeight,
-                      params.ImageWidth, extras)
+                      params.ImageWidth, extras,
+                      1 + int(bool(params.StereoAvaiable)))
     return Run(cell, params_dict, device, frames_u8, imu, start_state,
-               start_frames, units, reading, failed, mem_peak, parts)
+               start_frames, units, reading, failed, mem_peak, parts,
+               pair_u8)
 
 
 def correctness(run: Run, variant: Optional[str] = None):
@@ -329,13 +364,15 @@ def correctness(run: Run, variant: Optional[str] = None):
     checked unit and the reference stepped from the unit's state before
     it. With `variant` ("bf16", the control; "nudge", a sound change's
     stand-in: vobench.check.Reference) the reference so changed stands
-    in the program's place."""
+    in the program's place. A stereo run's cam1 frames go to both."""
     from vobench import check
     system = any(k.startswith("sys.") for k in run.start_state)
     ref = check.Reference(run.params_dict, run.device, run.frames_u8,
-                          run.imu, system=system)
+                          run.imu, system=system,
+                          frames_pair=run.frames_pair_u8)
     alt = (check.Reference(run.params_dict, run.device, run.frames_u8,
-                           run.imu, variant=variant, system=system)
+                           run.imu, variant=variant, system=system,
+                           frames_pair=run.frames_pair_u8)
            if variant else None)
     start = (check.reference_start(alt, run.start_frames) if alt
              else run.start_state)

@@ -1,6 +1,7 @@
-"""What every runner shares: moving a period frame to the card as the
-program's dataset path does, reading nav outputs back to the host, and
-the canonical layout of states and outputs (vobench.check)."""
+"""What every runner shares: moving a period frame (and a stereo run's
+cam1 frame) to the card as the program's dataset path does, reading nav
+outputs back to the host, and the canonical layout of states and
+outputs (vobench.check)."""
 
 from __future__ import annotations
 
@@ -31,6 +32,14 @@ def to_device(ctx, lane: int, i: int) -> Tensor:
     host frame copied in, as run_vo copies a decoded frame)."""
     with record_function("bench.inputs"):
         return torch.as_tensor(ctx.host[lane, ctx.idx(lane, i)],
+                               dtype=torch.float32).to(ctx.device)
+
+
+def to_device_pair(ctx, lane: int, i: int) -> Tensor:
+    """cam1's frame of run frame i of lane `lane` on the card, as
+    `to_device` moves cam0's (the same period index)."""
+    with record_function("bench.inputs"):
+        return torch.as_tensor(ctx.host_pair[lane, ctx.idx(lane, i)],
                                dtype=torch.float32).to(ctx.device)
 
 

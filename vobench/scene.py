@@ -18,7 +18,9 @@ frames/s one period is 40 frames. A visual-inertial run holds still
 for its first `hold` frames (tau = 0 there). The IMU is the exact
 derivative of the path (body rate (0, yaw', 0), specific force
 R^T (a_w - g_w), gravity +y) plus white noise at the stated noise
-densities, drawn from the seed.
+densities, drawn from the seed. A stereo run also renders cam1 along
+`pair_poses`, through cam1's own intrinsics and distortion, as
+`write_euroc_vi(stereo=True)` writes it.
 """
 
 from __future__ import annotations
@@ -248,6 +250,18 @@ def period_poses(spec: PathSpec, fps: float):
     P = period_frames(spec, fps)
     pos, _, yaw, _ = path(spec, np.arange(P) / fps)
     return pos, yaw_rotation(yaw)
+
+
+def pair_poses(R01, t01, pos, rot):
+    """cam1's world poses (positions [N, 3], world-from-camera rotations
+    [N, 3, 3]) for cam0's `pos` and `rot`, from the cam0 -> cam1
+    extrinsics (X1 = R01 X0 + t01): R_wc1 = R_wc0 R01^T, C1 = C0 -
+    R_wc1 t01. The convention of the port's `io/render.pair_poses`."""
+    R01 = np.asarray(R01, np.float64)
+    t01 = np.asarray(t01, np.float64)
+    rot1 = np.asarray(rot, np.float64) @ R01.T
+    return np.asarray(pos, np.float64) - np.einsum("nij,j->ni", rot1,
+                                                   t01), rot1
 
 
 def imu_samples(spec: PathSpec, t_hold: float, t_first: float,

@@ -96,7 +96,7 @@ def test_trace_summary_busy_idle_and_gaps():
 def test_readers_on_the_synthetic_trace():
     s = trace.summarize(synthetic_trace())
     r = SimpleNamespace(trace=s, traced_frames=2, traced_units=1,
-                        height=480, width=752, extras={})
+                        height=480, width=752, extras={}, images_per_frame=1)
     assert _read.idle_pct(r) == pytest.approx(60.0)
     assert _read.busy_ms_per_frame(r) == pytest.approx(200e-9 * 1e3)
     assert _read.launches_per_frame(r) == 1.5
