@@ -92,6 +92,13 @@ Phases, each printing one JSON line; any failure exits non-zero:
                 scale against the written path with no scale fitted, each
                 bar between what the JAX package reaches on the fixture
                 and a collapse;
+  11f. stereo_scan — the last 16 frames of phase 11 again, from its
+                state before them, as two replays of step_scan's stereo
+                CUDA graph with N=8 (frames_pair) under
+                set_sync_debug_mode("error"), against the same frames
+                stepped eagerly through step_donated with the pair: state
+                and outputs bit for bit; K1 16 launches a replay, K3 and
+                K4 8; one capture, the pairs counted and none unpaired;
   11b. stereo_profile — 2 more stereo steps under torch.profiler (spans
                 vo.stereo and vo.detect, K1's share of the device time);
   11c. stereo_run_vo — run_vo --euroc DIR --stereo against phase 11, and
@@ -149,11 +156,11 @@ Phases, each printing one JSON line; any failure exits non-zero:
                 frame 50; save_state after 10 frames, load_state, 5 more
                 steps against the run that was not interrupted;
   9. kernels  — the kernel list, with K1's, K3's and K4's launches on
-                every path (K3 once a step on phases 4, 4b, 11, 11e and
-                13; K4 once a step on phases 4, 4b, 10, 10e, 11, 11e and
-                13: once a batched call, 8 a replay of N=8).
-Each path (phases 4, 4b, 6, 6b, 8, 10, 10e, 10c, 11, 11c, 11e, 12b, 13,
-15)
+                every path (K3 once a step on phases 4, 4b, 11, 11f, 11e
+                and 13; K4 once a step on phases 4, 4b, 10, 10e, 11, 11f,
+                11e and 13: once a batched call, 8 a replay of N=8).
+Each path (phases 4, 4b, 6, 6b, 8, 10, 10e, 10c, 11, 11f, 11c, 11e, 12b,
+13, 15)
 starts with every kernel's launch count at 0 and reports the counts it
 ends with. Each phase line carries `elapsed_s`, the seconds since the script started.
 Then the nvidia-smi line, and last {"ok": true, "device": {...}}. Longer
@@ -220,6 +227,7 @@ G_DOWN = np.asarray([0.0, 1.0, 0.0])     # gravity in write_euroc_vi's
 N_ST = 60                # stereo frames of phase 11 (phase 10's fixture)
 N_ST_PROFILE = 2         # and of phase 11b after them
 N_ST_CPU = 8             # stereo frames of phase 11d
+N_ST_SCAN, ST_SCAN_N = 16, 8   # phase 11f: phase 11's last frames, chunk
 N_SYS = 20               # mono frames of phase 11e (phase 4's)
 # phase 12: tests/test_ba_scale.py's problem, 3 Gauss-Newton iterations
 BA_F, BA_L, BA_OBS, BA_ZFM, BA_ITERS = 64, 100_000, 3, 200.0, 3
@@ -320,6 +328,16 @@ def map_tree(fn, tree):
 
 def clone_tree(tree):
     return map_tree(torch.clone, tree)
+
+
+def leaves_differing(a, b) -> int:
+    """How many leaves of a and b differ (NaN equal to NaN); -1 when they
+    have another number of leaves."""
+    la, lb = tree_leaves(a), tree_leaves(b)
+    if len(la) != len(lb):
+        return -1
+    return sum(not (x.shape == y.shape and x.dtype == y.dtype and bool(
+        ((x == y) | (x != x) & (y != y)).all())) for x, y in zip(la, lb))
 
 
 def pos_tolerance(pos):
@@ -1113,14 +1131,7 @@ def vi_path(smi, vi_dir, pos_true, write_s):
 
     def delta(a, b, name):
         return b.get(name, 0) - a.get(name, 0)
-
-    def differing(a, b):
-        """Leaves of a and b that differ (NaN equal to NaN)."""
-        la, lb = tree_leaves(a), tree_leaves(b)
-        if len(la) != len(lb):
-            return -1
-        return sum(not (x.shape == y.shape and x.dtype == y.dtype and bool(
-            ((x == y) | (x != x) & (y != y)).all())) for x, y in zip(la, lb))
+    differing = leaves_differing
     ref_outs = [torch.stack(xs)
                 for xs in zip(*[tree_leaves(o) for o in ref])]
     scan_outs = [torch.cat(xs)
@@ -1263,6 +1274,90 @@ def _tum_rows(path):
     return tum, tum[:, 1:4]
 
 
+def stereo_scan_phase(smi, fe, scan0, um0, um1, f0, f1, ts):
+    """Phase 11f: phase 11's last N_ST_SCAN frames from its state before
+    them (`scan0`) as replays of step_scan's stereo graph (N = ST_SCAN_N,
+    cam1's frames as frames_pair) under sync-debug "error", bit for bit
+    against the same frames through eager step_donated with the pair.
+    Returns (the replays' launches, ok)."""
+    sc = range(N_ST - N_ST_SCAN, N_ST)
+    sc_f = torch.stack([apply_undistort(um0, f0[i]) for i in sc])
+    sc_p = torch.stack([apply_undistort(um1, f1[i]) for i in sc])
+    sc_t = torch.tensor([ts[i] for i in sc], dtype=torch.float32,
+                        device="cuda")
+    st = clone_tree(scan0)
+    ref = []
+    for k in range(N_ST_SCAN):
+        st, out = fe.step_donated(st, sc_f[k], sc_t[k], sc_p[k])
+        ref.append(out)
+    ref_state = st
+    chunks = [slice(c, c + ST_SCAN_N) for c in range(0, N_ST_SCAN, ST_SCAN_N)]
+    c0 = obs.counters()
+    fe.step_scan(clone_tree(scan0), sc_f[chunks[0]], sc_t[chunks[0]],
+                 frames_pair=sc_p[chunks[0]])          # the capture
+    c1 = obs.counters()
+    torch.cuda.synchronize()
+    zero_launches()
+    st, souts = clone_tree(scan0), []
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for c in chunks:
+            st, out = fe.step_scan(st, sc_f[c], sc_t[c], frames_pair=sc_p[c])
+            souts.append(out)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    launches = read_launches()
+    c2 = obs.counters()
+
+    def delta(a, b, name):
+        return b.get(name, 0) - a.get(name, 0)
+    ref_outs = [torch.stack(xs)
+                for xs in zip(*[tree_leaves(o) for o in ref])]
+    scan_outs = [torch.cat(xs)
+                 for xs in zip(*[tree_leaves(o) for o in souts])]
+    n_rep = len(chunks)
+    d_state = leaves_differing(st, ref_state)
+    d_outs = leaves_differing(scan_outs, ref_outs)
+    k1_per = launches["detect_candidates_cuda"] / n_rep
+    k3_per = launches["minimizer_rv"] / n_rep
+    k4_per = launches["correct_and_augment"] / n_rep
+    counts = {"graph.captures": delta(c0, c1, "graph.captures"),
+              "graph.replays": delta(c1, c2, "graph.replays"),
+              "stereo.pairs": delta(c0, c2, "stereo.pairs"),
+              "stereo.unpaired": delta(c0, c2, "stereo.unpaired"),
+              "pose.kernel": delta(c0, c1, "pose.kernel"),
+              "pose.kernel_replays": delta(c1, c2, "pose.kernel"),
+              "kf.kernel": delta(c0, c1, "kf.kernel"),
+              "kf.kernel_replays": delta(c1, c2, "kf.kernel")}
+    stages = {r.name for r in obs.records() if r.device_ms is not None
+              and r.frame >= fe.frame_id - N_ST_SCAN}
+    # the capture counts the warm-up's two steps and the captured ones
+    ok = (d_state == 0 and d_outs == 0 and k1_per == 2 * ST_SCAN_N
+          and k3_per == ST_SCAN_N and k4_per == ST_SCAN_N
+          and launches["minimizer_v"] == 0
+          and counts["pose.kernel"] == 2 + ST_SCAN_N
+          and counts["pose.kernel_replays"] == 0
+          and counts["kf.kernel"] == 2 + ST_SCAN_N
+          and counts["kf.kernel_replays"] == 0
+          and counts["graph.captures"] == 1
+          and counts["graph.replays"] == n_rep
+          and counts["stereo.pairs"] == ST_SCAN_N + N_ST_SCAN
+          and counts["stereo.unpaired"] == 0
+          and "vo.stereo" in stages)
+    emit({"phase": "stereo_scan", "ok": ok, "frames": N_ST_SCAN,
+          "from_frame": sc[0], "chunk": ST_SCAN_N, "replays": n_rep,
+          "VScaleC_start": float(scan0.VScaleC),
+          "state_leaves_differing": d_state,
+          "output_leaves_differing": d_outs, "launches": launches,
+          "k1_launches_per_replay": k1_per,
+          "k3_launches_per_replay": k3_per,
+          "k4_launches_per_replay": k4_per, "counters": counts,
+          "stages_timed": sorted(stages),
+          "compare": "bit for bit, NaN equal to NaN", "card": smi})
+    return launches, ok
+
+
 def stereo_path(smi, st_dir, pos_true):
     """Phases 11-11d: the stereo EuRoC path at the default config with
     StereoAvaiable=1, on phase 10's directory (cam0 + cam1). Returns
@@ -1291,6 +1386,8 @@ def stereo_path(smi, st_dir, pos_true):
         if i > 1:
             torch.cuda.set_sync_debug_mode("error")
         try:
+            if i == N_ST - N_ST_SCAN:        # phase 11f's start state
+                scan0 = clone_tree(state)
             t0 = time.perf_counter()
             state, out = fe.step_donated(state, apply_undistort(um0, f0[i]),
                                          ts[i], apply_undistort(um1, f1[i]))
@@ -1362,6 +1459,13 @@ def stereo_path(smi, st_dir, pos_true):
           "peak_device_mb": peak_mb, "card": smi})
     if not ok11:
         return {"stereo_main": st_launches}, False
+
+    # ---- 11f. the stereo graph against the eager stereo steps -----------
+    scan_launches, ok11f = stereo_scan_phase(smi, fe, scan0, um0, um1, f0,
+                                             f1, ts)
+    if not ok11f:
+        return {"stereo_main": st_launches, "stereo_scan": scan_launches}, \
+            False
 
     # ---- 11b. where the stereo step's time goes -------------------------
     pf0 = [apply_undistort(um0, f) for f in f0[N_ST:N_ST + N_ST_PROFILE]]

@@ -28,6 +28,10 @@ Examples:
     python -m rebvo_tpu_torch.apps.run_vo --euroc /data/MH_01_easy/mav0 \\
         --imu --chunk 8
 
+    # EuRoC directory, stereo, 8 frames and their cam1 frames per call
+    python -m rebvo_tpu_torch.apps.run_vo --euroc /data/MH_01_easy/mav0 \\
+        --stereo --chunk 8
+
 As in the JAX package's run_vo, every input frame goes through the
 config's undistortion when `UseUndistort` is set, synthetic frames
 included; `--render` (the port's own pinhole renderer) zeroes the
@@ -38,10 +42,12 @@ step. In stereo mode (`--stereo` or `StereoAvaiable`) a dataset's cam1
 stream is paired with cam0 and undistorted through cam1's own map; a
 frame whose pair was dropped, and every `--synthetic` or `--render`
 frame, runs without the pair. `--chunk N` steps N frames a call
-(`VOFrontend.step_scan`), in IMU mode N frames with their IMU windows
-(a frame without a window runs the mono step on its own, after the
-frames collected before it); it is not used with stereo pairs or
-`--kf-every`, whose frames run one at a time. `--kf-every N` pushes the
+(`VOFrontend.step_scan`): in IMU mode N frames with their IMU windows,
+in stereo mode N frames with their cam1 frames, both with both. A frame
+without its window (IMU mode) or without its pair (a dataset's stereo
+stream) steps on its own, after the frames collected before it. `--chunk`
+is not used with `--kf-every`, whose frames run one at a time.
+`--kf-every N` pushes the
 state's edge map and pose into a keyframe store on the device every N
 frames (no host read mid-run) and writes it at exit to
 `<out-dir>/kf_list.npz` or `--save-kf PATH`: the input of `run_ba`.
@@ -183,8 +189,8 @@ def main(argv=None):
                          "stream")
     ap.add_argument("--chunk", type=int, default=0,
                     help="step N frames per call (VOFrontend.step_scan), "
-                         "with their IMU windows in IMU mode; not with "
-                         "stereo pairs or --kf-every")
+                         "with their IMU windows in IMU mode and their cam1 "
+                         "frames in stereo mode; not with --kf-every")
     ap.add_argument("--kf-every", type=int, default=0,
                     help="push a keyframe (edge map + pose) every N frames "
                          "into a store on the device, saved at exit: the "
@@ -284,11 +290,10 @@ def main(argv=None):
         # package
         kf_store = KeyframeStore.empty(cap, params.KeylineMax,
                                        device=device)
-    single = stereo or kf_store is not None
-    if args.chunk > 1 and single:
-        print("run_vo: --chunk is not used with --stereo or --kf-every; "
-              "each frame is stepped on its own", file=sys.stderr)
-    chunk = [] if args.chunk > 1 and not single else None
+    if args.chunk > 1 and kf_store is not None:
+        print("run_vo: --chunk is not used with --kf-every; each frame is "
+              "stepped on its own", file=sys.stderr)
+    chunk = [] if args.chunk > 1 and kf_store is None else None
     venc = vout = None
     if args.save_video:
         from rebvo_tpu_torch.io.video import (VIDEO_ENCODER_TYPE_MJPEG,
@@ -309,11 +314,13 @@ def main(argv=None):
         return fe.step_donated(state, frame, t, pair)[0]
 
     def step_chunk(state, items):
-        wins = [w for _, _, w in items]
+        wins = [w for _, _, w, _ in items]
+        pairs = [pr for _, _, _, pr in items]
         return fe.step_scan(
-            state, torch.stack([f for f, _, _ in items]),
-            np.asarray([tt for _, tt, _ in items], np.float32),
-            stack_windows(wins) if wins[0] is not None else None)[0]
+            state, torch.stack([f for f, _, _, _ in items]),
+            np.asarray([tt for _, tt, _, _ in items], np.float32),
+            stack_windows(wins) if wins[0] is not None else None,
+            torch.stack(pairs) if pairs[0] is not None else None)[0]
 
     state = fe.init()
     n_done = 0
@@ -331,15 +338,16 @@ def main(argv=None):
                 pair = apply_undistort(umap_pair, pair)
         if n_done == 0:
             state = fe.bootstrap(state, frame, t, pair)
-        elif chunk is not None and (win is not None or not params.ImuMode):
-            chunk.append((frame, t, win))
+        elif chunk is not None and (win is not None or not params.ImuMode) \
+                and (pair is not None or not stereo):
+            chunk.append((frame, t, win, pair))
             if len(chunk) == args.chunk:
                 state = step_chunk(state, chunk)
                 chunk.clear()
         else:
             # the frames collected before this one, then this one
-            for f, tt, w in chunk or ():
-                state = step_one(state, f, tt, w)
+            for f, tt, w, pr in chunk or ():
+                state = step_one(state, f, tt, w, pr)
             if chunk:
                 chunk.clear()
             state = step_one(state, frame, t, win, pair)
@@ -356,8 +364,8 @@ def main(argv=None):
         if n_done >= n_total:
             break
     # the partial tail chunk, one frame at a time
-    for f, tt, w in chunk or ():
-        state = step_one(state, f, tt, w)
+    for f, tt, w, pr in chunk or ():
+        state = step_one(state, f, tt, w, pr)
     if device == "cuda":
         torch.cuda.synchronize()
     wall = time.perf_counter() - t_start

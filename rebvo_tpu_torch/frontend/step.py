@@ -9,6 +9,7 @@ rebvo_first_t.cpp:259-272).
     state, out = fe.step_donated(state, frame, t)      # reuses the input
     state, outs = fe.step_scan(state, frames, ts)      # N frames at once
     state, outs = fe.step_scan(state, frames, ts, wins)  # N VI frames
+    state, outs = fe.step_scan(state, frames, ts, frames_pair=pairs)  # stereo
     state, out = fe.step_imu(state, frame, t, win)     # visual-inertial
     state, out = fe.step_imu_donated(state, frame, t, win)
     state, out = fe.step(state, frame, t, frame_pair)  # stereo (any step)
@@ -45,22 +46,26 @@ or of a vmapped step times its stages again, frame by frame; they are
 read at the next entry call, without a sync. Every entry call is one
 `obs.unit`, numbered by the frontend's host-side `frame_id`.
 
-`step_scan` given the N frames' IMU windows (`wins`, stacked by
-`frontend.imu.stack_windows`) runs N `step_imu_donated` steps, with the
-frontend's camera-to-IMU extrinsics, as one CUDA graph of their own; the
-JAX package has no visual-inertial `step_scan`.
+`step_scan` runs mono, visual-inertial and stereo steps. Given the N
+frames' IMU windows (`wins`, stacked by `frontend.imu.stack_windows`) its
+steps are `step_imu_donated`, with the frontend's camera-to-IMU
+extrinsics; given cam1's N frames (`frames_pair`) each step takes its
+pair; given both, the steps are stereo-VI. Each combination is a CUDA
+graph of its own. The JAX package's `step_scan` is mono only.
 
-Stereo (`StereoAvaiable=1`): every entry point but `step_scan` takes the
-cam1 frame as `frame_pair`. `_detect_pair` runs the detector on it with
-its own threshold carry and cam1's intrinsics (the fused detector: the
-CUDA kernel a second time each frame), and `_tail` adds the stereo
-velocity-scale observers, the epipolar stereo match against the cam1
-map, the bootstrap re-gauge and the fusion of the pair depth with the
-mono EKF, all under the `vo.stereo` span (the pair's detection under
-`vo.detect` inside it). A stereo frame given `frame_pair=None` (a dropped
-cam1 frame) runs without the pair, as in the JAX package; a `frame_pair`
-given to a mono frontend raises ValueError. `step_scan` stays mono, as
-the JAX package's.
+Stereo (`StereoAvaiable=1`): every entry point takes the cam1 frame,
+`frame_pair` (`step_scan`: `frames_pair`, [N, H, W]). `_detect_pair` runs
+the detector on it with its own threshold carry and cam1's intrinsics
+(the fused detector: the CUDA kernel a second time each frame), and
+`_tail` adds the stereo velocity-scale carry and observers, the epipolar
+stereo match against the cam1 map, the bootstrap re-gauge and the fusion
+of the pair depth with the mono EKF, all under the `vo.stereo` span (the
+pair's detection under `vo.detect` inside it). The `vo.stereo` device
+stage holds the same blocks: each is its own interval between the
+`vo.match_depth` ones, summed a step. A stereo frame given
+`frame_pair=None` (a dropped cam1 frame) runs without the pair, as in
+the JAX package, and is counted in the obs counter `stereo.unpaired`; a
+`frame_pair` given to a mono frontend raises ValueError.
 """
 
 from __future__ import annotations
@@ -516,10 +521,12 @@ class VOFrontend:
         return torch.where(enough, anchored, old.valid)
 
     def _tail(self, state: VOState, new_fm: KeylineMap, V, P_V, R,
-              nan_fail, stereo=None):
+              nan_fail, stereo, tl):
         """Directed matching, depth filtering, and the stereo depth fusion
         (`stereo` = the pair's (klm1, mask1)) or the mono rescaling; the
-        caller has merged the forward rotations into state.klm."""
+        caller has merged the forward rotations into state.klm. With a
+        pair, the step's Timeline `tl` marks `vo.match_depth` before each
+        stereo block and `vo.stereo` after it; without one, nothing."""
         p = self.params
         cam = self.cam
         one = torch.ones((), dtype=V.dtype, device=V.device)
@@ -531,21 +538,27 @@ class VOFrontend:
             # the bootstrap frames the solver keeps the direction, and the
             # magnitude is the integrator C times the solver's, leashed to
             # 0.7-1.4x the previous frame's
-            boot = state.frame_count <= p.BootstrapRescaleFrames
-            mag_prev = torch.linalg.norm(state.Vel)
-            V = V * C_vel
-            mag_raw = torch.linalg.norm(V)
-            leash_ok = (~boot) & (mag_prev > 1e-8) & (mag_raw > 1e-12)
-            mag_cl = torch.minimum(torch.maximum(mag_raw, 0.7 * mag_prev),
-                                   1.4 * mag_prev)
-            V = torch.where(leash_ok,
-                            V * (mag_cl / torch.clamp(mag_raw, min=1e-12)), V)
+            tl.mark("vo.match_depth")
+            with obs.span("vo.stereo"):
+                boot = state.frame_count <= p.BootstrapRescaleFrames
+                mag_prev = torch.linalg.norm(state.Vel)
+                V = V * C_vel
+                mag_raw = torch.linalg.norm(V)
+                leash_ok = (~boot) & (mag_prev > 1e-8) & (mag_raw > 1e-12)
+                mag_cl = torch.minimum(
+                    torch.maximum(mag_raw, 0.7 * mag_prev), 1.4 * mag_prev)
+                V = torch.where(
+                    leash_ok, V * (mag_cl / torch.clamp(mag_raw, min=1e-12)),
+                    V)
+            tl.mark("vo.stereo")
 
         dres = self._match(state, new_fm, V, P_V, R)
         klm_num = dres.nmatch
         match_fail = klm_num < p.GlobalMatchThreshold
         est_ok = (~nan_fail) & (~match_fail)
 
+        if stereo is not None:
+            tl.mark("vo.match_depth")
         if rescale_on:
             with obs.span("vo.stereo"):
                 s_meas, n_sc = velocity_scale_refine(
@@ -598,23 +611,28 @@ class VOFrontend:
             # gauge-coherent birth depth: fresh keylines start at the
             # median rho of the mature population (RhoInit while nothing
             # is mature); s_rho stays at RHO_MAX
-            mature = new_map.valid & (new_map.m_num > 0)
-            seed = torch.clamp(
-                masked_median(new_map.rho, mature, fallback=RHO_INIT),
-                RHO_MIN, RHO_MAX)
-            fresh = new_map.valid & (new_map.m_num == 0)
-            new_map = new_map._replace(
-                rho=torch.where(fresh, seed, new_map.rho),
-                rho0=torch.where(fresh, seed, new_map.rho0))
+            with obs.span("vo.stereo"):
+                mature = new_map.valid & (new_map.m_num > 0)
+                seed = torch.clamp(
+                    masked_median(new_map.rho, mature, fallback=RHO_INIT),
+                    RHO_MIN, RHO_MAX)
+                fresh = new_map.valid & (new_map.m_num == 0)
+                new_map = new_map._replace(
+                    rho=torch.where(fresh, seed, new_map.rho),
+                    rho0=torch.where(fresh, seed, new_map.rho0))
+        if stereo is not None:
+            tl.mark("vo.stereo")
 
         proc, _ = regularize_1_iter(new_map, p.RegularizeThresh)
         proc = depth_ekf(proc, V, cam.zfm, reshape_q_abs=p.ReshapeQAbsolute,
                          loc_uncertainty=p.LocationUncertainty)
 
         if stereo is not None:
+            tl.mark("vo.match_depth")
             with obs.span("vo.stereo"):
                 proc, stereo_num, gauge_div = self._stereo_depth(
                     state, proc, stereo, est_ok, at_epoch)
+            tl.mark("vo.stereo")
             Kp_new = one
             P_Kp_new = state.P_Kp
             Kp_gauge = one
@@ -742,13 +760,17 @@ class VOFrontend:
         return self._entry(self._step, frame_pair, self._vi, True, state,
                            frame, t, win, R_cam2imu, T_cam2imu)
 
-    def _entry(self, fn, frame_pair, *args):
-        """An entry call, one `obs.unit`: `fn(*args, frame_pair=...)`. A
-        `frame_pair` given to a mono frontend raises ValueError."""
+    def _entry(self, fn, frame_pair, *args, n: int = 1):
+        """An entry call of n frames, one `obs.unit`: `fn(*args,
+        frame_pair=...)`. A `frame_pair` given to a mono frontend raises
+        ValueError. A stereo frontend's call given none, outside another
+        entry call, counts its n frames in `stereo.unpaired`."""
         if frame_pair is not None and not self.stereo:
             raise ValueError("frame_pair given to a mono frontend "
                              "(StereoAvaiable=0)")
-        with obs.unit(self):
+        if self.stereo and frame_pair is None and obs.open_unit() is None:
+            obs.count("stereo.unpaired", n)
+        with obs.unit(self, n):
             return fn(*args, frame_pair=frame_pair)
 
     def _step(self, body, donate: bool, state: VOState, frame, t, *extra,
@@ -872,7 +894,8 @@ class VOFrontend:
             R0 = so3_exp(W)
             R = R0.T
             state2 = state._replace(klm=self._rotate_map(old, R0))
-            tail = self._tail(state2, new_fm, V, P_V, R, nan_fail, fr.stereo)
+            tail = self._tail(state2, new_fm, V, P_V, R, nan_fail, fr.stereo,
+                              tl)
         tl.mark("vo.match_depth")
 
         K_scale = state.K_scale
@@ -1022,7 +1045,8 @@ class VOFrontend:
             nan_fail = torch.any(~torch.isfinite(V)) | (~ok_x)
             V = torch.where(nan_fail, z3, V)
             P_V = torch.where(nan_fail, eye3 * BIG, P_V)
-            tail = self._tail(state2, new_fm, V, P_V, R, nan_fail, fr.stereo)
+            tail = self._tail(state2, new_fm, V, P_V, R, nan_fail, fr.stereo,
+                              tl)
         tl.mark("vo.match_depth")
 
         # --- Gravity-aligned pose integration (rebvo_second_t.cpp:528-546).
@@ -1060,7 +1084,7 @@ class VOFrontend:
     # ------------------------------------------------------------------
 
     def step_scan(self, state: VOState, frames, ts,
-                  wins: Optional[ImuWindow] = None
+                  wins: Optional[ImuWindow] = None, frames_pair=None
                   ) -> Tuple[VOState, FrameOutput]:
         """Advance over a chunk of frames ([N, H, W], timestamps [N]);
         returns the final state and the N per-frame outputs stacked on a
@@ -1077,19 +1101,27 @@ class VOFrontend:
         window packer keeps at most S samples, so every window it cut is
         among them).
 
+        With `frames_pair`, cam1's N frames ([N, H, W], undistorted by
+        the caller as `frames` are), step i takes frame_pair
+        `frames_pair[i]`; a frontend without StereoAvaiable refuses them,
+        as pairs of another shape than the frames'. They are counted in
+        `stereo.pairs`. A stereo frontend given none steps every frame
+        without its pair, as the eager step does a dropped cam1 frame.
+
         On a CUDA state the N steps are one CUDA graph
         (`graphs.GraphCache`), captured at the first call for each (N, H,
-        W), or (N, H, W, S) with windows, and replayed by every later
-        call. The frames, timestamps and windows are copied into the
-        graph's static buffers, and a state other than the one the last
-        call returned into its static state. The state returned IS that
-        static state, so chained calls copy no state, and the next call
-        overwrites it; the outputs returned are copies. A capture that
-        fails raises: a CUDA state never runs the steps eagerly here. On
-        a CPU state the same N steps run in a Python loop. The call is
-        one `obs.unit` of N frames."""
-        with obs.unit(self, len(frames)):
-            return self._step_scan(state, frames, ts, wins)
+        W), (N, H, W, S) with windows, and either with "pair" added for
+        pairs, and replayed by every later call. The frames, timestamps,
+        windows and pairs are copied into the graph's static buffers, and
+        a state other than the one the last call returned into its static
+        state. The state returned IS that static state, so chained calls
+        copy no state, and the next call overwrites it; the outputs
+        returned are copies. A capture that fails raises: a CUDA state
+        never runs the steps eagerly here. On a CPU state the same N
+        steps run in a Python loop. The call is one `obs.unit` of N
+        frames."""
+        return self._entry(self._step_scan, frames_pair, state, frames, ts,
+                           wins, n=len(frames))
 
     def _scan_windows(self, wins: ImuWindow, n: int) -> ImuWindow:
         """step_scan's windows as tensors, checked and counted."""
@@ -1111,24 +1143,36 @@ class VOFrontend:
             obs.count("imu.truncated", int((wins.count >= g.shape[1]).sum()))
         return wins
 
+    def _scan_pairs(self, pairs, frames: Tensor) -> Tensor:
+        """step_scan's cam1 frames as a tensor, checked and counted."""
+        pairs = self._frame(pairs)
+        if pairs.shape != frames.shape:
+            raise ValueError(
+                f"step_scan: frames_pair must have the frames' shape "
+                f"{tuple(frames.shape)}, got {tuple(pairs.shape)}")
+        obs.count("stereo.pairs", pairs.shape[0])
+        return pairs
+
     def _scan_steps(self, state: VOState, inputs: tuple, n: int):
-        """The first n steps of a chunk, `inputs` (frames, ts) or (frames,
-        ts, windows): `step_donated`, or `step_imu_donated` with each
-        frame's window. Returns the state and the n outputs."""
-        frames, ts, *wins = inputs
+        """The first n steps of a chunk, `inputs` (frames, ts, windows or
+        (), (cam1 frames,) or ()): `step_donated`, or `step_imu_donated`
+        with each frame's window, each given its cam1 frame if there are
+        pairs. Returns the state and the n outputs."""
+        frames, ts, wins, pairs = inputs
         outs = []
         for i in range(n):
+            pair = pairs[0][i] if pairs else None
             if wins:
                 state, out = self.step_imu_donated(
                     state, frames[i], ts[i],
-                    ImuWindow(*[x[i] for x in wins[0]]), self.R_cam2imu,
-                    self.T_cam2imu)
+                    ImuWindow(*[x[i] for x in wins]), self.R_cam2imu,
+                    self.T_cam2imu, pair)
             else:
-                state, out = self.step_donated(state, frames[i], ts[i])
+                state, out = self.step_donated(state, frames[i], ts[i], pair)
             outs.append(out)
         return state, outs
 
-    def _step_scan(self, state: VOState, frames, ts, wins):
+    def _step_scan(self, state: VOState, frames, ts, wins, *, frame_pair):
         frames = self._frame(frames)
         ts = torch.as_tensor(ts, dtype=state.t.dtype).to(state.t.device)
         if frames.ndim != 3 or tuple(ts.shape) != tuple(frames.shape[:1]):
@@ -1137,11 +1181,14 @@ class VOFrontend:
                              f"{tuple(ts.shape)}")
         n = frames.shape[0]
         key = tuple(frames.shape)
-        inputs = (frames, ts)
         if wins is not None:
             wins = self._scan_windows(wins, n)
             key += (wins.gyro.shape[1], "imu")
-            inputs += (wins,)
+        pairs = ()
+        if frame_pair is not None:
+            pairs = (self._scan_pairs(frame_pair, frames),)
+            key += ("pair",)
+        inputs = (frames, ts, () if wins is None else wins, pairs)
         if state.t.device.type == "cpu":
             state, outs = self._scan_steps(state, inputs, n)
             return state, stack_trees(outs)

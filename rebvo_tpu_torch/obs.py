@@ -200,6 +200,11 @@ class span:
         return False
 
 
+def open_unit() -> Optional[Unit]:
+    """The unit open on this thread, or None outside any entry call."""
+    return _thread().unit
+
+
 class unit:
     """`with unit(source, n, lanes):` one entry call of `n` frames over
     `lanes` lanes. Its frame id is `source` (an int), or `source.frame_id`

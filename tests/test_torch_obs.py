@@ -425,8 +425,9 @@ def test_benchmark_lists_the_readers():
     per = {m["name"]: m for m in bench["per_layer"]}
     for name in READERS:
         assert (ROOT / "vobench" / "metrics" / f"{name}.py").exists()
-        # the replay readers read the VI replay's graph calls as well
+        # the replay readers read the VI and stereo replays' graph calls
+        # as well
         assert per[name]["workloads"] == (
             ["euroc_mono.live"] if name.endswith(".live")
             else ["euroc_mono.replay", "euroc_mono.batch16",
-                  "euroc_vi.replay"])
+                  "euroc_vi.replay", "euroc_stereo.replay"])

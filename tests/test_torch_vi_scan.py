@@ -334,22 +334,59 @@ def test_run_vo_imu_chunk_writes_same_tum(run_dir, capsys):
     assert rows["chunk"] == rows["frame"]
 
 
-@pytest.mark.parametrize("extra", [["--stereo"], ["--kf-every", "2"]],
-                         ids=["stereo", "kf_every"])
-def test_run_vo_chunk_refused_with_stereo_or_keyframes(run_dir, capsys,
-                                                       extra):
-    """--chunk with stereo pairs or --kf-every prints its refusal and
-    steps each frame on its own: the rows of the run without --chunk."""
+@pytest.fixture(scope="module")
+def dropped_dir(run_dir):
+    """A copy of run_dir's directory with cam1's third frame removed
+    (its row and its file): run frame 2 has no pair."""
+    import shutil
+    root, _ = run_dir
+    mav = root / "dropped" / "mav0"
+    shutil.copytree(root / "mav0", mav)
+    csv = mav / "cam1" / "data.csv"
+    head, *rows = [ln for ln in csv.read_text().splitlines() if ln]
+    gone = rows.pop(2)
+    os.remove(mav / "cam1" / "data" / gone.split(",")[1].strip())
+    csv.write_text("\n".join([head] + rows) + "\n")
+    return mav
+
+
+@pytest.mark.parametrize("extra", [["--stereo"], ["--kf-every", "2"],
+                                   ["--stereo", "dropped"]],
+                         ids=["stereo", "kf_every", "stereo_dropped"])
+def test_run_vo_chunk_refused_with_stereo_or_keyframes(run_dir, dropped_dir,
+                                                       capsys, extra):
+    """--chunk with --kf-every prints its refusal and steps each frame on
+    its own; with --stereo it prints none and chunks the pairs (stereo-VI
+    here: --imu too). Either way the rows are the run's without --chunk:
+    6 frames, a bootstrap, a chunk of 4 and a tail of one. With cam1's
+    third frame gone (10 frames), the chunked run steps the frame
+    collected before the unpaired one, then that frame without its pair,
+    then a chunk of 4 pairs and a tail of three: `stereo.pairs` counts
+    the chunk's 4, `stereo.unpaired` the one frame, as in the run
+    without --chunk."""
     from rebvo_tpu_torch.apps import run_vo
     root, cfg = run_dir
-    rows = {}
+    mav = dropped_dir if "dropped" in extra else root / "mav0"
+    flags = [x for x in extra if x != "dropped"]
+    refused = "--kf-every" in flags
+    n = 10 if "dropped" in extra else 6
+    rows, counts = {}, {}
     for name, chunk in (("plain", []), ("chunk", ["--chunk", "4"])):
-        out = root / f"{extra[0].strip('-')}_{name}"
-        run_vo.main(["--cpu", "--config", cfg, "--euroc",
-                     str(root / "mav0"), "--imu", "--max-frames", "6",
-                     "--out-dir", str(out)] + extra + chunk)
+        out = root / f"{'_'.join(x.strip('-') for x in extra)}_{name}"
+        c0 = obs.counters()
+        run_vo.main(["--cpu", "--config", cfg, "--euroc", str(mav), "--imu",
+                     "--max-frames", str(n), "--out-dir", str(out)]
+                    + flags + chunk)
+        c1 = obs.counters()
+        counts[name] = [c1.get(k, 0) - c0.get(k, 0)
+                        for k in ("stereo.pairs", "stereo.unpaired")]
         rows[name] = _tum(out / "rebvo_tray.txt")
         err = capsys.readouterr().err
-        assert ("--chunk is not used with --stereo or --kf-every" in err) \
-            == bool(chunk)
+        assert ("--chunk is not used with --kf-every" in err) == \
+            (refused and bool(chunk))
+        assert ("--chunk is not used" in err) == (refused and bool(chunk))
+    assert len(rows["plain"]) == n - 1      # none for the bootstrap
     assert rows["chunk"] == rows["plain"]
+    if "--stereo" in flags:
+        unpaired = int("dropped" in extra)
+        assert counts == {"plain": [0, unpaired], "chunk": [4, unpaired]}
