@@ -42,6 +42,15 @@ Phases, each printing one JSON line; any failure exits non-zero:
                 both id arrays written once, at the card's memory rate),
                 the wrapper call's ms, its ptxas resources and resident
                 clusters, and its launch count;
+  3f. K5 check — the match-and-depth kernels against their plain versions
+                on the card at the default config (752x480, K=16384): the
+                md_match and md_depth calls of 16 rendered steps, each alone
+                and the 16 as one vmapped launch of each (every output bit
+                for bit), the kernels' and the plain versions' device ms
+                for 1 and 16 lanes beside the bound (the maps read once and
+                the rows written once, at the card's memory rate), both
+                ops' call ms, their ptxas resources and resident clusters,
+                and their launch counts;
   4. main     — the default-config mono path (752x480, KeylineMax=16384)
                 over 60 rendered frames, every step after the first under
                 torch.cuda.set_sync_debug_mode("error");
@@ -50,7 +59,10 @@ Phases, each printing one JSON line; any failure exits non-zero:
                 PyTorch ops by device time;
   4b. scan    — from the state after phase 4, 16 frames through the
                 per-frame step against step_scan's CUDA graphs with N=8
-                and N=2, replayed under set_sync_debug_mode("error");
+                and N=2, replayed under set_sync_debug_mode("error"):
+                state and outputs bit for bit against the eager steps,
+                and against eager steps with the stage's plain versions
+                (`plain_stage`: K5 off);
   6. run_vo   — the run_vo entry point end to end on the card;
   6b. chunk   — run_vo --chunk 8 against phase 6's trajectory;
   7. cpu      — the first 8 frames of phase 4 on the CPU against the card;
@@ -71,9 +83,10 @@ Phases, each printing one JSON line; any failure exits non-zero:
                 before them (the scale filter running), as two replays
                 of step_scan's visual-inertial CUDA graph with N=8 under
                 set_sync_debug_mode("error"), against the same frames
-                stepped eagerly through step_imu_donated: state and
-                outputs bit for bit; K1 and K3's 3-dof mode 8 launches a
-                replay, K3's 6-dof mode none; one capture, its host
+                stepped eagerly through step_imu_donated, with K5 and
+                with the stage's plain versions: state and outputs bit
+                for bit; K1, K3's 3-dof mode and each K5 kernel 8 launches
+                a replay, K3's 6-dof mode none; one capture, its host
                 windows' samples counted and none cut;
   10b. vi_profile — 2 more VI steps under torch.profiler, as phase 5
                 (spans vo.imu and vo.imu_filter included);
@@ -96,9 +109,11 @@ Phases, each printing one JSON line; any failure exits non-zero:
                 state before them, as two replays of step_scan's stereo
                 CUDA graph with N=8 (frames_pair) under
                 set_sync_debug_mode("error"), against the same frames
-                stepped eagerly through step_donated with the pair: state
-                and outputs bit for bit; K1 16 launches a replay, K3 and
-                K4 8; one capture, the pairs counted and none unpaired;
+                stepped eagerly through step_donated with the pair, with
+                K5 and with the stage's plain versions: state and outputs
+                bit for bit; K1 16 launches a replay, K3, K4 and each K5
+                kernel 8; one capture, the pairs counted and none
+                unpaired;
   11b. stereo_profile — 2 more stereo steps under torch.profiler (spans
                 vo.stereo and vo.detect, K1's share of the device time);
   11c. stereo_run_vo — run_vo --euroc DIR --stereo against phase 11, and
@@ -155,10 +170,13 @@ Phases, each printing one JSON line; any failure exits non-zero:
                 frames, pixels equal); run_vo --interactive with 's' after
                 frame 50; save_state after 10 frames, load_state, 5 more
                 steps against the run that was not interrupted;
-  9. kernels  — the kernel list, with K1's, K3's and K4's launches on
-                every path (K3 once a step on phases 4, 4b, 11, 11f, 11e
-                and 13; K4 once a step on phases 4, 4b, 10, 10e, 11, 11f,
-                11e and 13: once a batched call, 8 a replay of N=8).
+  9. kernels  — the kernel list, with K1's, K3's, K4's and K5's
+                launches on every path (K3 once a step on phases 4, 4b,
+                11, 11f, 11e and 13; K4 and each K5 kernel once a step on
+                phases 4, 4b, 10, 10e, 11, 11f, 11e and 13: once a
+                batched call, 8 a replay of N=8; K5's md.match and
+                md.depth counters once an eager step, 10 an N=8 capture,
+                0 a replay).
 Each path (phases 4, 4b, 6, 6b, 8, 10, 10e, 10c, 11, 11f, 11c, 11e, 12b,
 13, 15)
 starts with every kernel's launch count at 0 and reports the counts it
@@ -911,6 +929,204 @@ def k4_phase(smi, p, frames, info):
           "resources": res.get("kf"), "check_launches": launches}
     return k4, ok
 
+# phase 3f: K5's bytes a slot at the least (match_depth.cu's bound):
+# md_match reads the old map's 12 float fields, its valid (a byte) and 2
+# int fields, m_id_f, the new map's 15 float fields, valid and 3 int
+# fields, and writes 16 float and 3 int rows; md_depth reads 14 float
+# fields, valid and 4 int fields and writes 4 float rows
+K5_MATCH_BYTES_PER_SLOT = (12 * 4 + 1 + 2 * 4 + 4) + (15 * 4 + 1 + 3 * 4) \
+    + 19 * 4
+K5_DEPTH_BYTES_PER_SLOT = 14 * 4 + 1 + 4 * 4 + 4 * 4
+N_K5_LANES = 16
+
+
+@contextlib.contextmanager
+def plain_stage():
+    """The stage's plain versions on the card inside: md_match and
+    md_depth run `match_plain` and `depth_plain` (lane by lane under
+    vmap) and launch nothing of K5."""
+    from rebvo_tpu_torch.kernels import match_depth as mdk
+    ops = mdk._match_op, mdk._depth_op
+
+    def plain(fn, dims):
+        def run(*ts, **kw):
+            lanes = tuple(ts[(4, 1)[fn is mdk.depth_plain]].shape[:-1])
+            if not lanes:
+                return fn(*ts, **kw)
+            return mdk._per_lane(lambda *a: fn(*a, **kw), lanes, ts, dims)
+        return run
+    mdk._match_op = plain(mdk.match_plain, (1, 1, 0, 0, 0))
+    mdk._depth_op = plain(mdk.depth_plain, (1, 0))
+    try:
+        yield
+    finally:
+        mdk._match_op, mdk._depth_op = ops
+
+
+def k5_launch_config(K):
+    """K5's shared bytes, threads and cluster at K slots a lane, and each
+    kernel's resident clusters."""
+    lib = cuda_build.library("match_depth")
+    intp = ctypes.POINTER(ctypes.c_int)
+    lib.md_max_clusters.argtypes = [ctypes.c_int, ctypes.c_int, intp]
+    lib.md_max_clusters.restype = ctypes.c_int
+    lib.md_launch_config.argtypes = [ctypes.c_int] + [intp] * 4
+    lib.md_launch_config.restype = None
+    cfg = [ctypes.c_int(0) for _ in range(4)]
+    lib.md_launch_config(K, *[ctypes.byref(c) for c in cfg])
+    out = {"smem_bytes_match": cfg[0].value, "smem_bytes_depth": cfg[1].value,
+           "threads": cfg[2].value, "cluster": cfg[3].value,
+           "clusters_per_lane": 1}
+    for depth, key in ((0, "match"), (1, "depth")):
+        n = ctypes.c_int(0)
+        err = lib.md_max_clusters(depth, K, ctypes.byref(n))
+        out[f"max_active_clusters_{key}"] = n.value
+        out[f"max_active_clusters_{key}_err"] = err
+    return out
+
+
+def k5_phase(smi, p, frames, info):
+    """Phase 3f (module docstring). Returns (the kernels' numbers for the
+    kernel list, ok)."""
+    from rebvo_tpu_torch.frontend import step as step_mod
+    from rebvo_tpu_torch.kernels import match_depth as mdk
+    dev = torch.device("cuda")
+    calls = []
+    orig = step_mod.md_match, step_mod.md_depth
+
+    def rec_m(*a, **kw):
+        calls.append([mdk.match_args(*a, **kw)])
+        return orig[0](*a, **kw)
+
+    def rec_d(*a, **kw):
+        calls[-1].append(mdk.depth_args(*a, **kw))
+        return orig[1](*a, **kw)
+
+    fe = VOFrontend(p, device="cuda")
+    gf = torch.as_tensor(frames[:N_K5_LANES + 1], device=dev)
+    step_mod.md_match, step_mod.md_depth = rec_m, rec_d
+    try:
+        st = fe.bootstrap(fe.init(), gf[0], 0.0)
+        for i in range(1, N_K5_LANES + 1):
+            st, _ = fe.step(st, gf[i], i / p.config_fps)
+    finally:
+        step_mod.md_match, step_mod.md_depth = orig
+    torch.cuda.synchronize()
+
+    def bits(t):
+        return t.view(torch.int32) if t.is_floating_point() else t
+
+    def compare(k, r):
+        res = {"mismatch": [int((bits(a) != bits(b)).sum())
+                            for a, b in zip(k, r)]}
+        res["ok"] = not any(res["mismatch"])
+        return res
+
+    def vmapped(fn, stacked, kw):
+        dims = tuple(None if x is None else 0 for x in stacked)
+        return torch.func.vmap(lambda *a: fn(*a, **kw), in_dims=dims)(
+            *stacked)
+
+    def stack(items):
+        return [None if x[0] is None else
+                [torch.stack(y) for y in zip(*x)]
+                if isinstance(x[0], list) else torch.stack(x)
+                for x in zip(*items)]
+
+    m0, d0 = mdk.md_match.launches, mdk.md_depth.launches
+    cases = []
+    for (mts, mkw), (dts, dkw) in calls:
+        cm = compare(mdk._match_op(*mts, **mkw), mdk.match_plain(*mts, **mkw))
+        cd = compare(mdk._depth_op(*dts, **dkw), mdk.depth_plain(*dts, **dkw))
+        cases.append({"match": cm, "depth": cd,
+                      "nmatch": int(mdk.match_plain(*mts, **mkw)[3])})
+    (mts, mkw), (dts, dkw) = calls[-1]
+    mst = stack([c[0][0] for c in calls])
+    dst = stack([c[1][0] for c in calls])
+    lanes16 = {"match": compare(vmapped(mdk._match_op, mst, mkw),
+                                vmapped(mdk.match_plain, mst, mkw)),
+               "depth": compare(vmapped(mdk._depth_op, dst, dkw),
+                                vmapped(mdk.depth_plain, dst, dkw))}
+    launches = (mdk.md_match.launches - m0, mdk.md_depth.launches - d0)
+    ok = (all(c["match"]["ok"] and c["depth"]["ok"] for c in cases)
+          and lanes16["match"]["ok"] and lanes16["depth"]["ok"]
+          and launches == (N_K5_LANES + 1, N_K5_LANES + 1))
+
+    # the kernels alone on the last call's inputs (and on all 16), the
+    # plain versions on the same, the wrappers' calls
+    launch_m, launch_d = mdk._launchers()
+    stream = torch.cuda.current_stream().cuda_stream
+    l2 = torch.empty(64 * 2 ** 20 // 4, dtype=torch.float32, device=dev)
+    flush = l2.zero_
+
+    def run_k():
+        mdk.match_launch(launch_m, *mts, stream, **mkw)
+        mdk.depth_launch(launch_d, *dts, stream, **dkw)
+
+    def run_k16():
+        mdk.match_launch(launch_m, *mst, stream, **mkw)
+        mdk.depth_launch(launch_d, *dst, stream, **dkw)
+
+    def run_p():
+        mdk.match_plain(*mts, **mkw)
+        mdk.depth_plain(*dts, **dkw)
+
+    def run_p16():
+        vmapped(mdk.match_plain, mst, mkw)
+        vmapped(mdk.depth_plain, dst, dkw)
+
+    def run_call():
+        mdk._match_op(*mts, **mkw)
+        mdk._depth_op(*dts, **dkw)
+    plain_a = device_ms(run_p, 3, flush)
+    k_a = device_ms(run_k, 50, flush)
+    k16_a = device_ms(run_k16, 20, flush)
+    km_a = device_ms(lambda: mdk.match_launch(launch_m, *mts, stream, **mkw),
+                     50, flush)
+    k_b = device_ms(run_k, 50, flush)
+    k16_b = device_ms(run_k16, 20, flush)
+    plain_b = device_ms(run_p, 3, flush)
+    times = {"kernel_ms": statistics.median([k_a, k_b]),
+             "kernel_ms_runs": [k_a, k_b], "md_match_ms": km_a,
+             "kernel_ms_16": statistics.median([k16_a, k16_b]),
+             "kernel_ms_16_runs": [k16_a, k16_b],
+             "plain_ms": statistics.median([plain_a, plain_b]),
+             "plain_ms_runs": [plain_a, plain_b],
+             "plain_ms_16": device_ms(run_p16, 2, flush),
+             "call_ms": time_cuda(run_call, 100, flush)}
+    del l2
+    K = mts[0][0].shape[-1]
+    bytes_call = K * (K5_MATCH_BYTES_PER_SLOT + K5_DEPTH_BYTES_PER_SLOT)
+    bound_ms = bytes_call / H100_MEM_BYTES_PER_S * 1e3
+    bound16_ms = N_K5_LANES * bound_ms
+    res = ptxas_resources(info["match_depth"]["ptxas"],
+                          lambda e: "md_depth" if "depth" in e
+                          else "md_match")
+    emit({"phase": "k5_check", "ok": ok, "cases": cases,
+          "lanes16": lanes16, "launches": list(launches),
+          "expected_launches": N_K5_LANES + 1, "K": K,
+          "bytes": bytes_call, "bound_ms": bound_ms,
+          "bound_ms_16": bound16_ms,
+          "bound_by": "bytes (latency-bound: a slot's dependent gathers, "
+                      "md_depth's 5 cluster-wide float64 reductions)",
+          **times, "x_bound": times["kernel_ms"] / bound_ms,
+          "x_bound_16": times["kernel_ms_16"] / bound16_ms,
+          "library_ms": None, "resources": res,
+          **k5_launch_config(K), "card": smi,
+          "timing": "as k1_check; kernel: md_match then md_depth by their "
+                    "launchers alone, plain: the plain versions' ops on "
+                    "the same inputs, call: both ops (the wrappers' "
+                    "launch paths), host gaps included; _16: 16 lanes in "
+                    "one call each"})
+    k5 = {**{k: times[k] for k in ("kernel_ms", "kernel_ms_16", "call_ms",
+                                   "plain_ms", "plain_ms_16",
+                                   "md_match_ms")},
+          "bound_ms": bound_ms, "bound_ms_16": bound16_ms,
+          "x_bound": times["kernel_ms"] / bound_ms, "resources": res,
+          "check_launches": list(launches)}
+    return k5, ok
+
+
 def profile_steps(fe, state, frames, ts, step=None, extra=None,
                   table="profile.txt"):
     """Step through `frames` under torch.profiler with `step` (default
@@ -996,6 +1212,7 @@ def vi_path(smi, vi_dir, pos_true, write_s):
     zero_launches()
     kc0 = obs.counters().get("pose_v.kernel", 0)
     kf0 = obs.counters().get("kf.kernel", 0)
+    md0 = [obs.counters().get(k, 0) for k in ("md.match", "md.depth")]
     state = fe.bootstrap(fe.init(), apply_undistort(umap, frames[0]), ts[0])
     outs, step_ms, und_ev, pre = [], [], [], {}
     for i in range(1, N_VI):
@@ -1026,6 +1243,10 @@ def vi_path(smi, vi_dir, pos_true, write_s):
     # K4: one launch a VI step, and its counter with it
     k4_main = (vi_launches["correct_and_augment"],
                obs.counters().get("kf.kernel", 0) - kf0)
+    # K5: each kernel once a VI step (md_match without the transfer)
+    k5_main = (vi_launches["md_match"], vi_launches["md_depth"],
+               *[obs.counters().get(k, 0) - c for k, c in
+                 zip(("md.match", "md.depth"), md0)])
     peak_mb = torch.cuda.max_memory_allocated() / 2 ** 20
     und_ms = statistics.median(a.elapsed_time(b) for a, b in und_ev)
     pos = np.stack([o.nav.Pos.cpu().numpy() for o in outs])
@@ -1064,6 +1285,7 @@ def vi_path(smi, vi_dir, pos_true, write_s):
             and VI_SCALE_BAND[0] < scale < VI_SCALE_BAND[1] and k1 == N_VI
             and k3v_main == (N_VI - 1, N_VI - 1)
             and k4_main == (N_VI - 1, N_VI - 1)
+            and k5_main == (N_VI - 1,) * 4
             and vi_launches["minimizer_rv"] == 0)
     steady = step_ms[5:]
     np.savez(os.path.join(OUT, "vi_path.npz"), pos=pos, kl=kl, est=est,
@@ -1073,6 +1295,7 @@ def vi_path(smi, vi_dir, pos_true, write_s):
           "k1_launches_expected": N_VI,
           "k3v_launches_and_counter": list(k3v_main),
           "k4_launches_and_counter": list(k4_main),
+          "k5_launches_and_counters": list(k5_main),
           "k3v_launches_expected": N_VI - 1, "kl_min": min(kl),
           "kl_floor": KL_FLOOR, "est_ok_share_after_2": est_share,
           "g_est": g.tolist(), "g_norm": float(np.linalg.norm(g)),
@@ -1108,6 +1331,14 @@ def vi_path(smi, vi_dir, pos_true, write_s):
                                       fe.R_cam2imu, fe.T_cam2imu)
         ref.append(out)
     ref_state = st
+    # the same frames through eager steps with the stage's plain versions
+    st, ref_plain = clone_tree(scan0), []
+    with plain_stage():
+        for k, i in enumerate(sc):
+            st, out = fe.step_imu_donated(st, sc_f[k], sc_t[k], wins[i],
+                                          fe.R_cam2imu, fe.T_cam2imu)
+            ref_plain.append(out)
+    ref_plain_state = st
     chunks = [slice(c, c + VI_SCAN_N) for c in range(0, N_VI_SCAN, VI_SCAN_N)]
     host_w = [stack_windows([items[i][2] for i in sc[c]]) for c in chunks]
     c0 = obs.counters()
@@ -1139,10 +1370,14 @@ def vi_path(smi, vi_dir, pos_true, write_s):
     n_rep = len(chunks)
     d_state = differing(st, ref_state)
     d_outs = differing(scan_outs, ref_outs)
+    d_plain = [differing(st, ref_plain_state), differing(scan_outs, [
+        torch.stack(xs) for xs in zip(*[tree_leaves(o) for o in ref_plain])])]
     k1_per = scan_launches["detect_candidates_cuda"] / n_rep
     k3 = scan_launches["minimizer_rv"]
     k3v_per = scan_launches["minimizer_v"] / n_rep
     k4_per = scan_launches["correct_and_augment"] / n_rep
+    k5_per = [scan_launches["md_match"] / n_rep,
+              scan_launches["md_depth"] / n_rep]
     samples = int(host_w[0].count.sum())      # the capture's windows
     counts = {"graph.captures": delta(c0, c1, "graph.captures"),
               "graph.replays": delta(c1, c2, "graph.replays"),
@@ -1151,9 +1386,14 @@ def vi_path(smi, vi_dir, pos_true, write_s):
               "pose_v.kernel": delta(c0, c1, "pose_v.kernel"),
               "pose_v.kernel_replays": delta(c1, c2, "pose_v.kernel"),
               "kf.kernel": delta(c0, c1, "kf.kernel"),
-              "kf.kernel_replays": delta(c1, c2, "kf.kernel")}
+              "kf.kernel_replays": delta(c1, c2, "kf.kernel"),
+              **{k + s: delta(*ab, k) for k in ("md.match", "md.depth")
+                 for s, ab in (("", (c0, c1)), ("_replays", (c1, c2)))}}
     # the capture counts the warm-up's two steps and the captured ones
-    ok10e = (d_state == 0 and d_outs == 0 and k1_per == VI_SCAN_N
+    ok10e = (d_state == 0 and d_outs == 0 and d_plain == [0, 0]
+             and k1_per == VI_SCAN_N and k5_per == [VI_SCAN_N] * 2
+             and all(counts[k] == 2 + VI_SCAN_N and counts[k + "_replays"]
+                     == 0 for k in ("md.match", "md.depth"))
              and k3 == 0 and k3v_per == VI_SCAN_N and k4_per == VI_SCAN_N
              and counts["pose_v.kernel"] == 2 + VI_SCAN_N
              and counts["pose_v.kernel_replays"] == 0
@@ -1167,10 +1407,13 @@ def vi_path(smi, vi_dir, pos_true, write_s):
           "from_frame": sc[0], "chunk": VI_SCAN_N, "replays": n_rep,
           "K_scale_start": float(scan0.K_scale),
           "state_leaves_differing": d_state,
-          "output_leaves_differing": d_outs, "launches": scan_launches,
+          "output_leaves_differing": d_outs,
+          "state_output_leaves_differing_plain_stage": d_plain,
+          "launches": scan_launches,
           "k1_launches_per_replay": k1_per, "k3_launches": k3,
           "k3v_launches_per_replay": k3v_per,
           "k4_launches_per_replay": k4_per,
+          "k5_launches_per_replay": k5_per,
           "counters": counts, "imu_samples_expected": samples,
           "compare": "bit for bit, NaN equal to NaN", "card": smi})
     if not ok10e:
@@ -1291,6 +1534,13 @@ def stereo_scan_phase(smi, fe, scan0, um0, um1, f0, f1, ts):
         st, out = fe.step_donated(st, sc_f[k], sc_t[k], sc_p[k])
         ref.append(out)
     ref_state = st
+    # the same frames through eager steps with the stage's plain versions
+    st, ref_plain = clone_tree(scan0), []
+    with plain_stage():
+        for k in range(N_ST_SCAN):
+            st, out = fe.step_donated(st, sc_f[k], sc_t[k], sc_p[k])
+            ref_plain.append(out)
+    ref_plain_state = st
     chunks = [slice(c, c + ST_SCAN_N) for c in range(0, N_ST_SCAN, ST_SCAN_N)]
     c0 = obs.counters()
     fe.step_scan(clone_tree(scan0), sc_f[chunks[0]], sc_t[chunks[0]],
@@ -1319,9 +1569,14 @@ def stereo_scan_phase(smi, fe, scan0, um0, um1, f0, f1, ts):
     n_rep = len(chunks)
     d_state = leaves_differing(st, ref_state)
     d_outs = leaves_differing(scan_outs, ref_outs)
+    d_plain = [leaves_differing(st, ref_plain_state),
+               leaves_differing(scan_outs, [
+                   torch.stack(xs)
+                   for xs in zip(*[tree_leaves(o) for o in ref_plain])])]
     k1_per = launches["detect_candidates_cuda"] / n_rep
     k3_per = launches["minimizer_rv"] / n_rep
     k4_per = launches["correct_and_augment"] / n_rep
+    k5_per = [launches["md_match"] / n_rep, launches["md_depth"] / n_rep]
     counts = {"graph.captures": delta(c0, c1, "graph.captures"),
               "graph.replays": delta(c1, c2, "graph.replays"),
               "stereo.pairs": delta(c0, c2, "stereo.pairs"),
@@ -1329,11 +1584,17 @@ def stereo_scan_phase(smi, fe, scan0, um0, um1, f0, f1, ts):
               "pose.kernel": delta(c0, c1, "pose.kernel"),
               "pose.kernel_replays": delta(c1, c2, "pose.kernel"),
               "kf.kernel": delta(c0, c1, "kf.kernel"),
-              "kf.kernel_replays": delta(c1, c2, "kf.kernel")}
+              "kf.kernel_replays": delta(c1, c2, "kf.kernel"),
+              **{k + s: delta(*ab, k) for k in ("md.match", "md.depth")
+                 for s, ab in (("", (c0, c1)), ("_replays", (c1, c2)))}}
     stages = {r.name for r in obs.records() if r.device_ms is not None
               and r.frame >= fe.frame_id - N_ST_SCAN}
     # the capture counts the warm-up's two steps and the captured ones
-    ok = (d_state == 0 and d_outs == 0 and k1_per == 2 * ST_SCAN_N
+    ok = (d_state == 0 and d_outs == 0 and d_plain == [0, 0]
+          and k5_per == [ST_SCAN_N] * 2
+          and all(counts[k] == 2 + ST_SCAN_N and counts[k + "_replays"]
+                  == 0 for k in ("md.match", "md.depth"))
+          and k1_per == 2 * ST_SCAN_N
           and k3_per == ST_SCAN_N and k4_per == ST_SCAN_N
           and launches["minimizer_v"] == 0
           and counts["pose.kernel"] == 2 + ST_SCAN_N
@@ -1352,8 +1613,10 @@ def stereo_scan_phase(smi, fe, scan0, um0, um1, f0, f1, ts):
           "output_leaves_differing": d_outs, "launches": launches,
           "k1_launches_per_replay": k1_per,
           "k3_launches_per_replay": k3_per,
-          "k4_launches_per_replay": k4_per, "counters": counts,
-          "stages_timed": sorted(stages),
+          "k4_launches_per_replay": k4_per,
+          "k5_launches_per_replay": k5_per,
+          "state_output_leaves_differing_plain_stage": d_plain,
+          "counters": counts, "stages_timed": sorted(stages),
           "compare": "bit for bit, NaN equal to NaN", "card": smi})
     return launches, ok
 
@@ -1427,6 +1690,8 @@ def stereo_path(smi, st_dir, pos_true):
             and all(st_ok) and est_share >= 0.9 and k1 == 2 * N_ST
             and st_launches["minimizer_rv"] == N_ST - 1
             and st_launches["correct_and_augment"] == N_ST - 1
+            and st_launches["md_match"] == N_ST - 1
+            and st_launches["md_depth"] == N_ST - 1
             and ST_SCALE_BAND[0] < scale < ST_SCALE_BAND[1]
             and ate_metric <= ST_ATE_METRIC * extent)
     steady = step_ms[5:]
@@ -1644,7 +1909,9 @@ def vosystem_phase(smi, p, frames, ts, pos4):
           and bool(np.all(np.isfinite(costs))) and snap_ok
           and sys_launches["detect_candidates_cuda"] == N_SYS
           and sys_launches["minimizer_rv"] == N_SYS - 1
-          and sys_launches["correct_and_augment"] == N_SYS - 1)
+          and sys_launches["correct_and_augment"] == N_SYS - 1
+          and sys_launches["md_match"] == N_SYS - 1
+          and sys_launches["md_depth"] == N_SYS - 1)
     # frames 6 on (outs[j] is frame j + 1)
     diff = [a - b for a, b in zip(sys_ms[5:], step_ms[5:])]
     emit({"phase": "vosystem", "ok": ok, "frames": N_SYS,
@@ -1897,6 +2164,7 @@ def batched_phase(smi, p, kw):
     ok = (ok_lanes and k1_launches == n and mism == 0 and err < 5e-3
           and got["minimizer_rv"] == N_BATCH_STEPS
           and got["correct_and_augment"] == N_BATCH_STEPS
+          and got["md_match"] == got["md_depth"] == N_BATCH_STEPS
           and bool(np.all(np.isfinite(bpos))))
     frames = N_LANES * N_BATCH_STEPS
     emit({"phase": "batched", "ok": ok, "lanes": N_LANES,
@@ -2586,6 +2854,11 @@ def main():
     if not ok3e:
         return 1
 
+    # ---- 3f. K5 against its plain versions ------------------------------
+    k5, ok3f = k5_phase(smi, p, frames, info)
+    if not ok3f:
+        return 1
+
     # ---- 4. main path at full width -----------------------------------
     fe = VOFrontend(p, device="cuda")
     gpu_frames = torch.as_tensor(frames, device=dev)
@@ -2593,6 +2866,7 @@ def main():
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     zero_launches()
+    md0 = {k: obs.counters().get(k, 0) for k in ("md.match", "md.depth")}
     state = fe.bootstrap(fe.init(), gpu_frames[0], ts[0])
     outs, step_ms = [], []
     for i in range(1, N_FRAMES):
@@ -2614,18 +2888,25 @@ def main():
     klm = [int(o.nav.klm_num) for o in outs]
     est = [bool(o.nav.estimation_ok) for o in outs]
     est_share = float(np.mean(est[2:]))
+    md_main = {k: obs.counters().get(k, 0) - md0[k] for k in md0}
     ok4 = (bool(np.all(np.isfinite(pos))) and min(kl) >= KL_FLOOR
            and est_share >= 0.9 and launches == N_FRAMES
            and main_launches["minimizer_rv"] == N_FRAMES - 1
            and main_launches["minimizer_v"] == 0
-           and main_launches["correct_and_augment"] == N_FRAMES - 1)
+           and main_launches["correct_and_augment"] == N_FRAMES - 1
+           and main_launches["md_match"] == N_FRAMES - 1
+           and main_launches["md_depth"] == N_FRAMES - 1
+           and md_main == {"md.match": N_FRAMES - 1,
+                           "md.depth": N_FRAMES - 1})
     steady = step_ms[5:]
     np.savez(os.path.join(OUT, "main_path.npz"), pos=pos, kl=kl, klm=klm,
              est=est, step_ms=step_ms)
     emit({"phase": "main_path", "ok": ok4, "frames": N_FRAMES,
           "launches": main_launches, "kl_min": min(kl),
           "k3_launches_expected": N_FRAMES - 1,
-          "k4_launches_expected": N_FRAMES - 1, "kl_floor": KL_FLOOR,
+          "k4_launches_expected": N_FRAMES - 1,
+          "k5_launches_expected": N_FRAMES - 1, "md_counters": md_main,
+          "kl_floor": KL_FLOOR,
           "klm_min": min(klm), "est_ok_share_after_2": est_share,
           "pos_finite": bool(np.all(np.isfinite(pos))),
           "ms_per_frame_median": statistics.median(steady),
@@ -2659,6 +2940,14 @@ def main():
         ref.append(out)
     torch.cuda.synchronize()
     pf_ms = (time.perf_counter() - t0) * 1e3 / N_SCAN
+    ref_state = st
+    # the same frames through eager steps with the stage's plain versions
+    st, ref_plain = clone_tree(state4), []
+    with plain_stage():
+        for i in range(N_SCAN):
+            st, out = fe.step(st, sc_f[i], sc_t[i])
+            ref_plain.append(out)
+    ref_plain_state = st
     ref_pos = np.stack([o.nav.Pos.cpu().numpy() for o in ref])
     ref_kl = [int(o.nav.kl_num) for o in ref]
     tol4b = pos_tolerance(ref_pos)
@@ -2688,16 +2977,33 @@ def main():
         k1_per = got["detect_candidates_cuda"] / (N_SCAN // n)
         k3_per = got["minimizer_rv"] / (N_SCAN // n)
         k4_per = got["correct_and_augment"] / (N_SCAN // n)
+        k5_per = [got["md_match"] / (N_SCAN // n),
+                  got["md_depth"] / (N_SCAN // n)]
+        # state and outputs bit for bit against the eager steps, K5's and
+        # the plain stage's
+        scan_outs = [torch.cat(xs)
+                     for xs in zip(*[tree_leaves(o) for o in souts])]
+        differing = {
+            label: [leaves_differing(st, rs),
+                    leaves_differing(scan_outs, [
+                        torch.stack(xs)
+                        for xs in zip(*[tree_leaves(o) for o in ro])])]
+            for label, rs, ro in (("eager", ref_state, ref),
+                                  ("eager_plain_stage", ref_plain_state,
+                                   ref_plain))}
         ok_n = (skl == ref_kl and dpos <= tol4b and k1_per == n
                 and k3_per == n and got["minimizer_v"] == 0
-                and k4_per == n)
+                and k4_per == n and k5_per == [n, n]
+                and all(d == [0, 0] for d in differing.values()))
         ok4b = ok4b and ok_n
         scan[f"n{n}"] = {"ok": ok_n, "replays": N_SCAN // n,
                          "ms_per_frame": ms, "kl_equal": skl == ref_kl,
                          "max_abs_pos_diff": dpos, "launches": got,
                          "k1_launches_per_replay": k1_per,
                          "k3_launches_per_replay": k3_per,
-                         "k4_launches_per_replay": k4_per}
+                         "k4_launches_per_replay": k4_per,
+                         "k5_launches_per_replay": k5_per,
+                         "state_output_leaves_differing": differing}
     peak_graph_mb = torch.cuda.max_memory_allocated() / 2 ** 20
     # one N=8 replay under torch.profiler: the device's busy time per
     # frame inside the graph, and so its idle share on the graph path
@@ -2921,7 +3227,27 @@ def main():
             "vi_run_vo": vi_launches["vi_run_vo"]["correct_and_augment"],
             **{k: v["correct_and_augment"] for k, v in st_launches.items()},
             "vosystem": sys_launches["correct_and_augment"],
-            "batched": batched_launches["correct_and_augment"]}}]})
+            "batched": batched_launches["correct_and_augment"]}}, {
+        "name": "match_depth (md_match_kernel + md_depth_kernel)",
+        "route": "cuda", "source": "rebvo_tpu_torch/csrc/match_depth.cu",
+        "replaces": None,
+        "replaces_function": "none: vo.match_depth's K-wide PyTorch ops "
+                             "(kernels/match_depth.match_plain, "
+                             "depth_plain)",
+        "launches": [main_launches["md_match"], main_launches["md_depth"]],
+        **k5, "ms": k5["kernel_ms"], "bound_by": "bytes",
+        "library_ms": None,
+        "launches_by_path": {
+            k: [v["md_match"], v["md_depth"]] for k, v in (
+                ("main_path", main_launches),
+                ("scan_n8", scan["n8"]["launches"]),
+                ("scan_n2", scan["n2"]["launches"]),
+                ("bench", bench_launches),
+                ("vi_main", vi_launches["vi_main"]),
+                ("vi_scan_n8", vi_launches["vi_scan"]),
+                ("vi_run_vo", vi_launches["vi_run_vo"]),
+                *st_launches.items(), ("vosystem", sys_launches),
+                ("batched", batched_launches))}}]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,
                                  "count": torch.cuda.device_count()}})

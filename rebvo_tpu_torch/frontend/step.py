@@ -77,9 +77,7 @@ import numpy as np
 import torch
 from rebvo_tpu_torch import obs
 from rebvo_tpu_torch.config import REBVOParameters
-from rebvo_tpu_torch.core.geometry import (CameraModel, rotate_gradients,
-                                           rotate_hom_points, so3_exp,
-                                           so3_log)
+from rebvo_tpu_torch.core.geometry import CameraModel, so3_exp, so3_log
 from rebvo_tpu_torch.core.numerics import matmul
 from rebvo_tpu_torch.core.stats import masked_median
 from rebvo_tpu_torch.frontend.imu import (ImuWindow, ScaleWindows,
@@ -93,17 +91,15 @@ from rebvo_tpu_torch.frontend.state import (BIG, RHO_INIT, RHO_MAX, RHO_MIN,
 # tree_map and tree_leaves are re-exported: callers of this module use them
 from rebvo_tpu_torch.graphs import (GraphCache, copy_tree_,  # noqa: F401
                                     stack_trees, tree_leaves, tree_map)
-from rebvo_tpu_torch.kernels.depth_filter import (depth_ekf,
-                                                  estimate_quantile,
-                                                  estimate_rescaling_opt,
-                                                  regularize_1_iter)
+from rebvo_tpu_torch.kernels.depth_filter import estimate_quantile
 from rebvo_tpu_torch.kernels.edge_detect import (compact_keylines,
                                                  detect_keylines,
                                                  re_estimate_thresh,
                                                  update_detector_threshold)
 from rebvo_tpu_torch.kernels.field import build_field
+from rebvo_tpu_torch.kernels.match_depth import (MatchResult, md_depth,
+                                                 md_match, rotate_map)
 from rebvo_tpu_torch.kernels.matching import (directed_matching,
-                                              directed_matching_field,
                                               forward_match)
 from rebvo_tpu_torch.kernels.pose_solver import (FieldView, minimizer_rv,
                                                  minimizer_v)
@@ -314,7 +310,7 @@ _Front = namedtuple("_Front", "klm mask_img kl_num thresh retuned s_rho_q fv "
 # `VOFrontend._tail`'s results: the frame's map, matched and filtered, its
 # scale bookkeeping, and gauge_div, this frame's re-gauge of its depths
 _Tail = namedtuple("_Tail", "klm klm_num est_ok Kp Kp_gauge P_Kp V_out "
-                   "stereo_num gauge_div VScaleC aR aV aAge")
+                   "stereo_num gauge_div VScaleC aR aV aAge R")
 
 
 class _Stages(NamedTuple):
@@ -493,22 +489,33 @@ class VOFrontend:
         return _Front(new_klm, new_mask, kl_num, thresh, retuned, s_rho_q,
                       fv, field_img, stereo, thresh_p, kl_num_p)
 
-    def _match(self, state: VOState, new_klm: KeylineMap, V, P_V, R):
+    def _match(self, state: VOState, new: KeylineMap, V, P_V, nan_fail,
+               m_id_f, W, R0, R) -> MatchResult:
+        """The forward transfer along `m_id_f` (None: none), the forward
+        rotation of the old map state.klm (by so3_exp(W), or by R0 with
+        the back rotation R) and the directed matching: md_match (one
+        launch of K5 on the card) with the strided field, plain ops with
+        the 1-px mask (MatchFieldStride=0)."""
         p = self.params
         cam = self.cam
-        kw = dict(zfm=cam.zfm, cx=cam.cx, cy=cam.cy, width=cam.width,
-                  height=cam.height, min_thr_mod=p.MatchThreshModule,
-                  min_thr_ang=p.MatchThreshAngle,
-                  max_radius=float(p.SearchRange),
-                  loc_uncertainty=p.LocationUncertaintyMatch)
         if p.MatchFieldStride > 0:
-            stride = p.MatchFieldStride
-            return directed_matching_field(
-                new_klm, state.klm, state.field_img, V, P_V, R,
-                max_steps=int(p.SearchRange / stride) + 3, stride=stride,
-                **kw)
-        return directed_matching(new_klm, state.klm, state.mask_img, V, P_V,
-                                 R, max_steps=p.MatchMaxSteps, **kw)
+            return md_match(state.klm, new, state.field_img, V, P_V,
+                            nan_fail, cam=cam, params=p, m_id_f=m_id_f, W=W,
+                            R0=R0, R=R)
+        if m_id_f is not None:
+            new, _ = forward_match(state.klm, new, m_id_f)
+        if W is not None:
+            R0 = so3_exp(W)
+            R = R0.T
+        old = rotate_map(state.klm, R0, cam.zfm)
+        dres = directed_matching(
+            new, old, state.mask_img, V, P_V, R, zfm=cam.zfm, cx=cam.cx,
+            cy=cam.cy, width=cam.width, height=cam.height,
+            max_steps=p.MatchMaxSteps, min_thr_mod=p.MatchThreshModule,
+            min_thr_ang=p.MatchThreshAngle, max_radius=float(p.SearchRange),
+            loc_uncertainty=p.LocationUncertaintyMatch)
+        est_ok = (~nan_fail) & (~(dres.nmatch < p.GlobalMatchThreshold))
+        return MatchResult(dres.new, old, dres.nmatch, est_ok, R0)
 
     def _solver_vote_mask(self, old: KeylineMap):
         """Stereo: restrict the pose solver's cost vote to the
@@ -520,13 +527,15 @@ class VOFrontend:
         enough = torch.sum(anchored) >= self.params.GlobalMatchThreshold
         return torch.where(enough, anchored, old.valid)
 
-    def _tail(self, state: VOState, new_fm: KeylineMap, V, P_V, R,
-              nan_fail, stereo, tl):
-        """Directed matching, depth filtering, and the stereo depth fusion
-        (`stereo` = the pair's (klm1, mask1)) or the mono rescaling; the
-        caller has merged the forward rotations into state.klm. With a
-        pair, the step's Timeline `tl` marks `vo.match_depth` before each
-        stereo block and `vo.stereo` after it; without one, nothing."""
+    def _tail(self, state: VOState, new: KeylineMap, V, P_V, nan_fail,
+              stereo, tl, *, m_id_f=None, W=None, R0=None, R=None):
+        """The forward transfer, rotation and directed matching (`_match`:
+        state.klm is the old map before this frame's forward rotation, by
+        so3_exp(W), or by R0 with the back rotation R), the depth
+        filtering (md_depth), and the stereo depth fusion (`stereo` = the
+        pair's (klm1, mask1)) or the mono rescaling. With a pair, the
+        step's Timeline `tl` marks `vo.match_depth` before each stereo
+        block and `vo.stereo` after it; without one, nothing."""
         p = self.params
         cam = self.cam
         one = torch.ones((), dtype=V.dtype, device=V.device)
@@ -552,23 +561,25 @@ class VOFrontend:
                     V)
             tl.mark("vo.stereo")
 
-        dres = self._match(state, new_fm, V, P_V, R)
-        klm_num = dres.nmatch
-        match_fail = klm_num < p.GlobalMatchThreshold
-        est_ok = (~nan_fail) & (~match_fail)
+        mt = self._match(state, new, V, P_V, nan_fail, m_id_f, W, R0, R)
+        # the stereo blocks read the forward-rotated old map
+        state = state._replace(klm=mt.old)
+        R = mt.R0.mT
+        klm_num = mt.nmatch
+        est_ok = mt.est_ok
 
         if stereo is not None:
             tl.mark("vo.match_depth")
         if rescale_on:
             with obs.span("vo.stereo"):
                 s_meas, n_sc = velocity_scale_refine(
-                    dres.new, state.klm, V, cam.zfm,
+                    mt.new, state.klm, V, cam.zfm,
                     k_px=float(p.LocationUncertaintyMatch) / 2.0)
                 s_meas = torch.where(est_ok & (n_sc >= 100), s_meas, one)
                 aV_cur = matmul(R.T, state.aV) + V
                 aR_cur = matmul(R.T, state.aR)
                 s_long, n_long, _ = anchor_scale_measure(
-                    dres.new, aR_cur, aV_cur, cam.zfm)
+                    mt.new, aR_cur, aV_cur, cam.zfm)
                 # age-based epochs
                 at_epoch = state.aAge >= p.StereoScaleBaseFrames
                 s_long = torch.where(est_ok & (state.aAge >= 4) &
@@ -606,7 +617,7 @@ class VOFrontend:
             at_epoch = None
             aR_new, aV_new, aAge_new = state.aR, state.aV, state.aAge
 
-        new_map = dres.new
+        new_map = mt.new
         if p.SeedRhoMapMedian and stereo is not None:
             # gauge-coherent birth depth: fresh keylines start at the
             # median rho of the mature population (RhoInit while nothing
@@ -623,51 +634,35 @@ class VOFrontend:
         if stereo is not None:
             tl.mark("vo.stereo")
 
-        proc, _ = regularize_1_iter(new_map, p.RegularizeThresh)
-        proc = depth_ekf(proc, V, cam.zfm, reshape_q_abs=p.ReshapeQAbsolute,
-                         loc_uncertainty=p.LocationUncertainty)
-
+        # regularize_1_iter and depth_ekf, and without a pair the
+        # rescaling, the est_ok select and the scale bookkeeping (Kp_gauge
+        # skips frames whose creep the applied rescale already removed
+        # from the map): md_depth, one launch of K5 on the card
+        dep = md_depth(new_map, V, nan_fail, klm_num, state.frame_count,
+                       cam=cam, params=p, rescale=stereo is None)
         if stereo is not None:
             tl.mark("vo.match_depth")
             with obs.span("vo.stereo"):
                 proc, stereo_num, gauge_div = self._stereo_depth(
-                    state, proc, stereo, est_ok, at_epoch)
+                    state, dep.klm, stereo, est_ok, at_epoch)
             tl.mark("vo.stereo")
-            Kp_new = one
-            P_Kp_new = state.P_Kp
-            Kp_gauge = one
+            new_final = select_map(est_ok, proc, mt.new)
+            Kp = Kp_gauge = one
+            P_Kp = torch.where(
+                nan_fail, torch.full_like(state.P_Kp, BIG),
+                torch.where(klm_num < p.GlobalMatchThreshold,
+                            torch.full_like(state.P_Kp, 10.0), state.P_Kp))
+            V_out = torch.where(est_ok, V, torch.zeros_like(V))
         else:
             stereo_num = torch.zeros((), dtype=torch.int32, device=V.device)
             gauge_div = one
-            proc, Kp_new, P_Kp_new = estimate_rescaling_opt(proc,
-                                                            apply=False)
-            do_res = torch.full((), bool(p.DoReScaling), dtype=torch.bool,
-                                device=V.device)
-            if p.ImuMode > 0 and p.BootstrapRescaleFrames > 0:
-                boot = state.frame_count <= p.BootstrapRescaleFrames
-                moving = torch.abs(Kp_new - 1.0) > 0.05
-                apply_res = do_res | (boot & moving & est_ok)
-            else:
-                apply_res = do_res
-            div = torch.where(apply_res, Kp_new, one)
-            proc = proc._replace(rho=proc.rho / div, s_rho=proc.s_rho / div)
-
-        new_final = select_map(est_ok, proc, dres.new)
-        Kp = torch.where(est_ok, Kp_new, one)
-        if stereo is None:
-            # gauge bookkeeping skips frames whose creep the applied
-            # rescale already removed from the map
-            Kp_gauge = torch.where(apply_res, one, Kp)
-        P_Kp = torch.where(nan_fail, torch.full_like(P_Kp_new, BIG),
-                           torch.where(match_fail,
-                                       torch.full_like(P_Kp_new, 10.0),
-                                       P_Kp_new))
-        V_out = torch.where(est_ok, V, torch.zeros_like(V))
+            new_final, Kp, Kp_gauge, P_Kp, V_out = dep
         # gauge_div: the factor this frame's re-gauge divided the map's
         # inverse depths by; the caller multiplies the warm-start velocity
         # by it
         return _Tail(new_final, klm_num, est_ok, Kp, Kp_gauge, P_Kp, V_out,
-                     stereo_num, gauge_div, C_vel, aR_new, aV_new, aAge_new)
+                     stereo_num, gauge_div, C_vel, aR_new, aV_new, aAge_new,
+                     R)
 
     def _stereo_depth(self, state: VOState, proc: KeylineMap, stereo,
                       est_ok, at_epoch):
@@ -890,12 +885,9 @@ class VOFrontend:
         tl.mark("vo.pose")
 
         with obs.span("vo.match_depth"):
-            new_fm, _ = forward_match(old, fr.klm, mres.m_id_f)
-            R0 = so3_exp(W)
-            R = R0.T
-            state2 = state._replace(klm=self._rotate_map(old, R0))
-            tail = self._tail(state2, new_fm, V, P_V, R, nan_fail, fr.stereo,
-                              tl)
+            tail = self._tail(state, fr.klm, V, P_V, nan_fail, fr.stereo, tl,
+                              m_id_f=mres.m_id_f, W=W)
+            R = tail.R
         tl.mark("vo.match_depth")
 
         K_scale = state.K_scale
@@ -1040,13 +1032,12 @@ class VOFrontend:
         tl.mark("vo.imu_filter")
 
         with obs.span("vo.match_depth"):
-            # --- Second forward rotation of the old map.
-            state2 = state._replace(klm=self._rotate_map(old_pre, R0))
             nan_fail = torch.any(~torch.isfinite(V)) | (~ok_x)
             V = torch.where(nan_fail, z3, V)
             P_V = torch.where(nan_fail, eye3 * BIG, P_V)
-            tail = self._tail(state2, new_fm, V, P_V, R, nan_fail, fr.stereo,
-                              tl)
+            # the second forward rotation of the old map (by R0) in _tail
+            tail = self._tail(state._replace(klm=old_pre), new_fm, V, P_V,
+                              nan_fail, fr.stereo, tl, R0=R0, R=R)
         tl.mark("vo.match_depth")
 
         # --- Gravity-aligned pose integration (rebvo_second_t.cpp:528-546).
@@ -1212,8 +1203,4 @@ class VOFrontend:
 
     def _rotate_map(self, klm: KeylineMap, R0: Tensor) -> KeylineMap:
         """Forward-rotate an edge map (edge_tracker::rotate_keylines)."""
-        px, py, rho, s_rho = rotate_hom_points(
-            R0, klm.px, klm.py, klm.rho, klm.s_rho, self.cam.zfm)
-        gx, gy = rotate_gradients(R0, klm.gx, klm.gy)
-        return klm._replace(px=px, py=py, rho=rho, s_rho=s_rho,
-                            gx=gx, gy=gy)
+        return rotate_map(klm, R0, self.cam.zfm)

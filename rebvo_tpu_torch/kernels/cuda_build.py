@@ -37,7 +37,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-Xptxas", "-v"]
 
 SOURCES = ("detect_candidates", "build_scale_space", "pose_lm",
-           "kf_correct")
+           "kf_correct", "match_depth")
 
 
 def _nvcc() -> str:

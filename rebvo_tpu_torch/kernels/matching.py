@@ -14,6 +14,7 @@ edge_tracker, src/mtracklib/edge_tracker.cpp:158-436).
 
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple, Tuple
 
 import torch
@@ -183,10 +184,16 @@ def _apply_matches(new: KeylineMap, old: KeylineMap, matched: Tensor,
     return DirectedMatchResult(new=new2, nmatch=nmatch, kf_matches=kf_matches)
 
 
-def _grad_ok(new: KeylineMap, o_gx, o_gy, o_nm, min_thr_mod, min_thr_ang):
-    # evaluated in float32 like the reference's cos(deg2rad(f32))
-    cang_min = float(torch.cos(torch.deg2rad(
+@functools.cache
+def cang_min_of(min_thr_ang: float) -> float:
+    """The gradient test's cosine bound, evaluated in float32 like the
+    reference's cos(deg2rad(f32))."""
+    return float(torch.cos(torch.deg2rad(
         torch.tensor(min_thr_ang, dtype=torch.float32))))
+
+
+def _grad_ok(new: KeylineMap, o_gx, o_gy, o_nm, min_thr_mod, min_thr_ang):
+    cang_min = cang_min_of(min_thr_ang)
     cang = (o_gx * new.gx[:, None] + o_gy * new.gy[:, None]) / \
         (o_nm * new.n_m[:, None])
     return (cang >= cang_min) & \

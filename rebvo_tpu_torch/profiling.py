@@ -58,16 +58,12 @@ def stage_breakdown(fe, state, frame, n: int = 20) -> Dict[str, float]:
     from rebvo_tpu_torch.frontend.step import MAX_IMG_VALUE
     from rebvo_tpu_torch.kernels.cuda_scale_space import \
         build_scale_space_cuda
-    from rebvo_tpu_torch.kernels.depth_filter import (depth_ekf,
-                                                      estimate_quantile,
-                                                      estimate_rescaling_opt,
-                                                      regularize_1_iter)
+    from rebvo_tpu_torch.kernels.depth_filter import estimate_quantile
     from rebvo_tpu_torch.kernels.edge_detect import (detect_keylines,
                                                      re_estimate_thresh,
                                                      update_detector_threshold)
     from rebvo_tpu_torch.kernels.field import build_field
-    from rebvo_tpu_torch.kernels.matching import (directed_matching_field,
-                                                  forward_match)
+    from rebvo_tpu_torch.kernels.match_depth import md_depth, md_match
     from rebvo_tpu_torch.kernels.pose_solver import FieldView, minimizer_rv
     from rebvo_tpu_torch.kernels.scale_space import build_scale_space
 
@@ -121,26 +117,17 @@ def stage_breakdown(fe, state, frame, n: int = 20) -> Dict[str, float]:
         init_iter=p.TrackerInitIterNum, init_type=p.TrackerInitType)
     out["pose_solver"] = dt * 1e3
 
-    new_fm, _ = forward_match(state.klm, klm, mres.m_id_f)
-    stride = p.MatchFieldStride
-    steps = int(p.SearchRange / stride) + 3
-    dt, dres = _timeit(
-        dev, n, directed_matching_field, new_fm, state.klm, state.field_img,
-        mres.Vel, mres.RVel, torch.eye(3, device=dev),
-        zfm=cam.zfm, cx=cam.cx, cy=cam.cy, width=cam.width,
-        height=cam.height, max_steps=steps, stride=stride,
-        min_thr_mod=p.MatchThreshModule, min_thr_ang=p.MatchThreshAngle,
-        max_radius=float(p.SearchRange),
-        loc_uncertainty=p.LocationUncertaintyMatch)
+    # vo.match_depth's two K5 calls (their plain versions on the CPU):
+    # the forward transfer, an identity rotation and the field matching;
+    # the regularisation, EKF and rescaling
+    ok = torch.zeros((), dtype=torch.bool, device=dev)
+    V, P_V = mres.Vel.contiguous(), mres.RVel.contiguous()
+    dt, mt = _timeit(dev, n, md_match, state.klm, klm, state.field_img, V,
+                     P_V, ok, cam=cam, params=p, m_id_f=mres.m_id_f,
+                     W=torch.zeros(3, device=dev))
     out["matching"] = dt * 1e3
-
-    def ekf_chain(m, V):
-        m = regularize_1_iter(m, p.RegularizeThresh)[0]
-        m = depth_ekf(m, V, cam.zfm, reshape_q_abs=p.ReshapeQAbsolute,
-                      loc_uncertainty=p.LocationUncertainty)
-        return estimate_rescaling_opt(m, apply=True)
-
-    dt, _ = _timeit(dev, n, ekf_chain, dres.new, mres.Vel)
+    dt, _ = _timeit(dev, n, md_depth, mt.new, V, ok, mt.nmatch,
+                    state.frame_count, cam=cam, params=p, rescale=True)
     out["depth_filter"] = dt * 1e3
 
     dt, _ = _timeit(dev, n, fe.step, state, frame, 1.0)

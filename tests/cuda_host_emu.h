@@ -1,6 +1,6 @@
 // Host emulation of the CUDA subset the kernels use
 // (rebvo_tpu_torch/csrc/tile_pipeline.cuh, csrc/pose_lm.cu,
-// csrc/kf_correct.cu), so that g++ compiles and runs the kernels' own
+// csrc/kf_correct.cu, csrc/match_depth.cu), so that g++ compiles and runs the kernels' own
 // source on the CPU: a block's CUDA threads are std::threads,
 // __syncthreads is a std::barrier, the block's shared memory is a buffer
 // filled with NaNs (a read of a cell no phase wrote shows in the output).
@@ -124,6 +124,13 @@ inline int atomicAdd(int* p, int v) {
 inline int atomicMax(int* p, int v) {
   std::atomic_ref<int> a(*p);
   int old = a.load();
+  while (old < v && !a.compare_exchange_weak(old, v)) {
+  }
+  return old;
+}
+inline unsigned atomicMax(unsigned* p, unsigned v) {
+  std::atomic_ref<unsigned> a(*p);
+  unsigned old = a.load();
   while (old < v && !a.compare_exchange_weak(old, v)) {
   }
   return old;

@@ -148,7 +148,8 @@ def test_evaluate_sequence_matches_jax(tmp_path, small_cam, monkeypatch):
                                           "build_scale_space_cuda": 0,
                                           "minimizer_rv": 0,
                                           "minimizer_v": 0,
-                                          "correct_and_augment": 0}
+                                          "correct_and_augment": 0,
+                                          "md_match": 0, "md_depth": 0}
 
 
 def test_run_repo_without_cuda_fails(tmp_path, small_cam):

@@ -1,11 +1,12 @@
-// The tile kernels (K1, K2), the pose solver (K3) and the keyframe
-// tracker (K4) built for the host under tests/cuda_host_emu.h, with their
+// The tile kernels (K1, K2), the pose solver (K3), the keyframe tracker
+// (K4) and the match-and-depth stage (K5) built for the host under tests/cuda_host_emu.h, with their
 // own launchers, plus an export of one block's reciprocal tables. Built and driven by tests/tile_host.py.
 
 #include "detect_candidates.cu"
 #include "build_scale_space.cu"
 #include "pose_lm.cu"
 #include "kf_correct.cu"
+#include "match_depth.cu"
 
 // The row then column reciprocal tables that load_tile builds for block
 // (bx, by) under the plan given as the launchers take it; entries of

@@ -1,13 +1,14 @@
-"""Host build of the CUDA kernels K1, K2, K3 and K4 for the CPU tests.
+"""Host build of the CUDA kernels K1 to K5 for the CPU tests.
 
 `library()` compiles `tests/tile_host.cpp`, which includes the kernel
 sources of `rebvo_tpu_torch/csrc` and their launchers, with g++ under
 `tests/cuda_host_emu.h` into `build/host_emu/` at the repository root
 (once per hash of the sources and flags), and loads it with ctypes.
-`detect`, `sspace`, `pose` and `kf` run the kernels through the CUDA
-wrappers' own launch paths (`cuda_scale_space.detect_launch`,
-`sspace_launch`, `pose_solver.pose_launch`, `kf_tracking.kf_launch`) on
-CPU tensors.
+`detect`, `sspace`, `pose`, `kf`, `md_match` and `md_depth` run the
+kernels through the CUDA wrappers' own launch paths
+(`cuda_scale_space.detect_launch`, `sspace_launch`,
+`pose_solver.pose_launch`, `kf_tracking.kf_launch`,
+`match_depth.match_launch`, `depth_launch`) on CPU tensors.
 """
 
 from __future__ import annotations
@@ -22,6 +23,7 @@ from pathlib import Path
 
 from rebvo_tpu_torch.frontend import kf_tracking as kft
 from rebvo_tpu_torch.kernels import cuda_scale_space as cs
+from rebvo_tpu_torch.kernels import match_depth as mdk
 from rebvo_tpu_torch.kernels import pose_solver as ps
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -61,8 +63,11 @@ def library() -> ctypes.CDLL:
     lib.pose_lm_launch.argtypes = ps.K3_ARGTYPES
     lib.pose_v_launch.argtypes = ps.K3_ARGTYPES
     lib.kf_correct_launch.argtypes = kft.K4_ARGTYPES
+    lib.md_match_launch.argtypes = mdk.MATCH_ARGTYPES
+    lib.md_depth_launch.argtypes = mdk.DEPTH_ARGTYPES
     for fn in (lib.detect_candidates_launch, lib.build_scale_space_launch,
                lib.pose_lm_launch, lib.pose_v_launch, lib.kf_correct_launch,
+               lib.md_match_launch, lib.md_depth_launch,
                lib.tile_reciprocals, lib.tile_table_shape):
         fn.restype = ctypes.c_int
     return lib
@@ -93,3 +98,16 @@ def kf(tensors, **kw):
     """K4's host build on CPU inputs (kf_tracking._INPUTS' order), as the
     card's `correct_and_augment`: m_f, m_kf and the counts."""
     return kft.kf_launch(library().kf_correct_launch, tensors, None, **kw)
+
+
+def md_match(*args, **kw):
+    """K5's md_match, host build, on CPU inputs (match_depth.match_plain's
+    arguments), as the card's md_match: the float and int rows, R0,
+    nmatch and est_ok."""
+    return mdk.match_launch(library().md_match_launch, *args, None, **kw)
+
+
+def md_depth(*args, **kw):
+    """K5's md_depth, host build, on CPU inputs (match_depth.depth_plain's
+    arguments): the rows and the scalars."""
+    return mdk.depth_launch(library().md_depth_launch, *args, None, **kw)
