@@ -20,10 +20,11 @@
 //   * md_depth: regularize_1_iter (neighbours read from md_match's map,
 //     written to another buffer), depth_ekf, then, without a stereo pair,
 //     estimate_rescaling_opt's 5 rounds of two float64 sums, the apply_res
-//     divide, the est_ok select, and Kp, Kp_gauge, P_Kp and V_out.
+//     divide and the est_ok select; and Kp, Kp_gauge, P_Kp and V_out.
 // The stereo step runs its own blocks between the two launches (they read
 // the rotated old map and md_match's map, both written out), and md_depth
-// then stops after the EKF.
+// then stops after the EKF, with Kp = 1 and the previous P_Kp carried
+// (the stereo blocks and their est_ok select follow it).
 //
 // Bound. md_match reads the old map's 15 fields and m_id_f and the new
 // map's 19 fields once (134 B a slot), writes 16 float and 3 int rows (76
@@ -40,9 +41,14 @@
 //     CTA's shared memory, over distributed shared memory, behind cluster
 //     barriers, as the plain version's two scatters: rho's order-keeping
 //     bits (-0 taken as +0; a NaN poisons its target, which then has no
-//     winner, as the plain scatter leaves it), then the index of each
-//     source that holds the best key (64-bit atomicMax on a peer's
-//     shared memory lost updates on the card);
+//     winner, as the plain scatter leaves it on the CPU), then the index
+//     of each source that holds the best key (64-bit atomicMax on a
+//     peer's shared memory lost updates on the card). The card's
+//     scatter_reduce amax may let a NaN rho lose to the other sources of
+//     its target, so there, and there alone, the kernel and the plain
+//     stage part: the kernel keeps the CPU's rule. The step makes no NaN
+//     rho in a valid slot (depth_ekf resets a non-finite estimate);
+//     the card test of tests/test_torch_md_kernel.py pins the rule;
 //   * the ladder's samples are loaded 8 at a time, the hits' fields 4 at
 //     a time, from L2 (the old map's rotated fields are computed from its
 //     own, never read back);
@@ -121,11 +127,12 @@ enum MatchOutF {
 };
 enum MatchOutI { I_MNUM, I_MID, I_MKF, N_OUT_I };
 // md_depth's inputs: the map to filter (md_match's, a stereo step's after
-// its median seed), Vel [3], nan_fail [], nmatch [], frame_count [].
+// its median seed), Vel [3], nan_fail [], nmatch [], frame_count [], the
+// previous frame's P_Kp [].
 enum DepthIn {
   D_VALID, D_NID, D_PID, D_GX, D_GY, D_NM, D_PX, D_PY, D_RHO, D_SRHO,
   D_RHO0, D_SRHO0, D_MID, D_MNUM, D_P0X, D_P0Y, D_G0X, D_G0Y, D_NM0, D_VEL,
-  D_NAN_FAIL, D_NMATCH, D_FRAME, N_DEPTH_IN
+  D_NAN_FAIL, D_NMATCH, D_FRAME, D_PKP, N_DEPTH_IN
 };
 constexpr int N_OUT_D = 4;       // rho, s_rho, rho0, s_rho0 rows
 constexpr int N_OUT_S = 6;       // Kp, Kp_gauge, P_Kp, V_out
@@ -190,6 +197,10 @@ __device__ __forceinline__ int round_i32(float x) {
   if (t <= -2147483648.0f) return -2147483647 - 1;
   return (int)t;
 }
+// `card` (the launcher's flag) picks PyTorch's rounding on the card, the
+// one the step runs; card = 0 (the CPU's) serves only the host build's
+// tests, which hold the kernels against the plain versions on the CPU.
+//
 // x / c by a Python scalar c: x * (1/c) on the card, a division on the CPU
 __device__ __forceinline__ float div_s(bool card, float x, float c,
                                       float inv_c) {
@@ -205,7 +216,18 @@ __device__ __forceinline__ T sum3(bool card, T x0, T x1, T x2) {
 }
 // one entry of a float64 product (core/numerics.matmul): a gemm's dot
 // product, and a gemv's of a row-major matrix (a transposed view's is
-// the gemm's)
+// the gemm's). Which one the plain step runs follows the layout of its
+// tensors, which these two hold:
+//   * dot_mm: so3_exp's K @ K, BackRot @ P_V and (BackRot P_V) @
+//     BackRot^T in directed_matching_field, and BackRot @ Vel where
+//     BackRot is so3_exp(W)'s transposed view `r0.T` (the mono step:
+//     match_plain, VOFrontend._match);
+//   * dot_mv: BackRot @ Vel where BackRot is a contiguous [3, 3] (the VI
+//     step's R @ R0.T; the launcher refuses a non-contiguous BackRot).
+// A .contiguous() on `r0.T` in match_plain, or a transposed view passed
+// as the VI step's BackRot, changes the cuBLAS routine and its rounding:
+// the card's tests (tests/test_torch_md_kernel.py -m card, chip_smoke's
+// K5 phase) are what see it, not the host build's.
 __device__ __forceinline__ double dot_mm(bool card, const double* a,
                                          const double* b) {
   if (card) return fma(a[2], b[2], fma(a[1], b[1], a[0] * b[0]));
@@ -755,9 +777,20 @@ __global__ void __cluster_dims__(CLUSTER, 1, 1) __launch_bounds__(NT)
     of[3 * LK + i] = s0;
   }
   float* os = a.out_s + (size_t)lane * N_OUT_S;
+  const bool nan_fail = ld(in_of<uint8_t>(a, D_NAN_FAIL, lane)) != 0;
+  const bool match_fail = ld(in_of<int>(a, D_NMATCH, lane)) < a.gmt;
+  const bool est_ok = !nan_fail && !match_fail;
   if (!a.rescale) {
-    if (rank == 0 && tid == 0)
-      for (int k = 0; k < N_OUT_S; ++k) os[k] = 0.0f;
+    // the stereo tail: the pair holds the scale (Kp = 1), P_Kp carries
+    if (rank == 0 && tid == 0) {
+      const float pkp = ld(in_of<float>(a, D_PKP, lane));
+      os[0] = 1.0f;
+      os[1] = 1.0f;
+      os[2] = nan_fail ? BIG : (match_fail ? 10.0f : pkp);
+      os[3] = est_ok ? V0 : 0.0f;
+      os[4] = est_ok ? V1 : 0.0f;
+      os[5] = est_ok ? V2 : 0.0f;
+    }
     return;
   }
 
@@ -811,9 +844,6 @@ __global__ void __cluster_dims__(CLUSTER, 1, 1) __launch_bounds__(NT)
     RKp = sm->kp[1];
   }
 
-  const bool nan_fail = ld(in_of<uint8_t>(a, D_NAN_FAIL, lane)) != 0;
-  const bool match_fail = ld(in_of<int>(a, D_NMATCH, lane)) < a.gmt;
-  const bool est_ok = !nan_fail && !match_fail;
   const bool boot = ld(in_of<int>(a, D_FRAME, lane)) <= a.brf;
   const bool moving = fabsf(Kp - 1.0f) > 0.05f;
   const bool apply_res =

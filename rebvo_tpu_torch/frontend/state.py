@@ -130,8 +130,10 @@ def keylines_to_host(klm: KeylineMap, fields, extra=()) -> dict:
 
 
 def select_map(cond: Tensor, a: KeylineMap, b: KeylineMap) -> KeylineMap:
-    """Field-wise where(cond, a, b) (the reference's tree_map of where)."""
-    return KeylineMap(*[torch.where(cond, x, y) for x, y in zip(a, b)])
+    """Field-wise where(cond, a, b) (the reference's tree_map of where); a
+    field that a and b share is taken as it is."""
+    return KeylineMap(*[x if x is y else torch.where(cond, x, y)
+                        for x, y in zip(a, b)])
 
 
 class NavData(NamedTuple):

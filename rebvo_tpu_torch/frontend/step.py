@@ -97,8 +97,9 @@ from rebvo_tpu_torch.kernels.edge_detect import (compact_keylines,
                                                  re_estimate_thresh,
                                                  update_detector_threshold)
 from rebvo_tpu_torch.kernels.field import build_field
-from rebvo_tpu_torch.kernels.match_depth import (MatchResult, md_depth,
-                                                 md_match, rotate_map)
+from rebvo_tpu_torch.kernels.match_depth import (MatchResult, match_maps,
+                                                 md_depth, md_match,
+                                                 rotate_map)
 from rebvo_tpu_torch.kernels.matching import (directed_matching,
                                               forward_match)
 from rebvo_tpu_torch.kernels.pose_solver import (FieldView, minimizer_rv,
@@ -502,19 +503,18 @@ class VOFrontend:
             return md_match(state.klm, new, state.field_img, V, P_V,
                             nan_fail, cam=cam, params=p, m_id_f=m_id_f, W=W,
                             R0=R0, R=R)
-        if m_id_f is not None:
-            new, _ = forward_match(state.klm, new, m_id_f)
-        if W is not None:
-            R0 = so3_exp(W)
-            R = R0.T
-        old = rotate_map(state.klm, R0, cam.zfm)
-        dres = directed_matching(
-            new, old, state.mask_img, V, P_V, R, zfm=cam.zfm, cx=cam.cx,
-            cy=cam.cy, width=cam.width, height=cam.height,
-            max_steps=p.MatchMaxSteps, min_thr_mod=p.MatchThreshModule,
-            min_thr_ang=p.MatchThreshAngle, max_radius=float(p.SearchRange),
-            loc_uncertainty=p.LocationUncertaintyMatch)
-        est_ok = (~nan_fail) & (~(dres.nmatch < p.GlobalMatchThreshold))
+
+        def matcher(new, old, back_rot):
+            return directed_matching(
+                new, old, state.mask_img, V, P_V, back_rot, zfm=cam.zfm,
+                cx=cam.cx, cy=cam.cy, width=cam.width, height=cam.height,
+                max_steps=p.MatchMaxSteps, min_thr_mod=p.MatchThreshModule,
+                min_thr_ang=p.MatchThreshAngle,
+                max_radius=float(p.SearchRange),
+                loc_uncertainty=p.LocationUncertaintyMatch)
+        dres, old, R0, est_ok = match_maps(
+            state.klm, new, m_id_f, W, R0, R, nan_fail, matcher, zfm=cam.zfm,
+            gmt=p.GlobalMatchThreshold)
         return MatchResult(dres.new, old, dres.nmatch, est_ok, R0)
 
     def _solver_vote_mask(self, old: KeylineMap):
@@ -564,7 +564,10 @@ class VOFrontend:
         mt = self._match(state, new, V, P_V, nan_fail, m_id_f, W, R0, R)
         # the stereo blocks read the forward-rotated old map
         state = state._replace(klm=mt.old)
-        R = mt.R0.mT
+        # the frame's back rotation: so3_exp(W)^T in mono; the caller's in
+        # VI, where it holds the IMU's rotation besides R0
+        if R is None:
+            R = mt.R0.mT
         klm_num = mt.nmatch
         est_ok = mt.est_ok
 
@@ -634,35 +637,31 @@ class VOFrontend:
         if stereo is not None:
             tl.mark("vo.stereo")
 
-        # regularize_1_iter and depth_ekf, and without a pair the
-        # rescaling, the est_ok select and the scale bookkeeping (Kp_gauge
-        # skips frames whose creep the applied rescale already removed
-        # from the map): md_depth, one launch of K5 on the card
+        # regularize_1_iter and depth_ekf, without a pair the rescaling and
+        # the est_ok select, and the scale bookkeeping (Kp_gauge skips
+        # frames whose creep the applied rescale already removed from the
+        # map): md_depth, one launch of K5 on the card
         dep = md_depth(new_map, V, nan_fail, klm_num, state.frame_count,
-                       cam=cam, params=p, rescale=stereo is None)
+                       state.P_Kp, cam=cam, params=p,
+                       rescale=stereo is None)
         if stereo is not None:
             tl.mark("vo.match_depth")
             with obs.span("vo.stereo"):
                 proc, stereo_num, gauge_div = self._stereo_depth(
                     state, dep.klm, stereo, est_ok, at_epoch)
             tl.mark("vo.stereo")
+            # only the fields the depth and stereo blocks changed
             new_final = select_map(est_ok, proc, mt.new)
-            Kp = Kp_gauge = one
-            P_Kp = torch.where(
-                nan_fail, torch.full_like(state.P_Kp, BIG),
-                torch.where(klm_num < p.GlobalMatchThreshold,
-                            torch.full_like(state.P_Kp, 10.0), state.P_Kp))
-            V_out = torch.where(est_ok, V, torch.zeros_like(V))
         else:
             stereo_num = torch.zeros((), dtype=torch.int32, device=V.device)
             gauge_div = one
-            new_final, Kp, Kp_gauge, P_Kp, V_out = dep
+            new_final = dep.klm
         # gauge_div: the factor this frame's re-gauge divided the map's
         # inverse depths by; the caller multiplies the warm-start velocity
         # by it
-        return _Tail(new_final, klm_num, est_ok, Kp, Kp_gauge, P_Kp, V_out,
-                     stereo_num, gauge_div, C_vel, aR_new, aV_new, aAge_new,
-                     R)
+        return _Tail(new_final, klm_num, est_ok, dep.Kp, dep.Kp_gauge,
+                     dep.P_Kp, dep.V_out, stereo_num, gauge_div, C_vel,
+                     aR_new, aV_new, aAge_new, R)
 
     def _stereo_depth(self, state: VOState, proc: KeylineMap, stereo,
                       est_ok, at_epoch):

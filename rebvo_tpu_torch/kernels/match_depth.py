@@ -3,7 +3,7 @@ kernels (`csrc/match_depth.cu`), and their plain versions.
 
     m = md_match(old, new, field_img, V, P_V, nan_fail, cam=cam,
                  params=p, m_id_f=m_id_f, W=W)       # mono (or R0=, R=)
-    d = md_depth(m.new, V, nan_fail, m.nmatch, frame_count, cam=cam,
+    d = md_depth(m.new, V, nan_fail, m.nmatch, frame_count, P_Kp, cam=cam,
                  params=p, rescale=True)             # False: stereo
 
 `md_match` is the forward transfer of `matching.forward_match` along the
@@ -14,9 +14,10 @@ returns the matched map, the rotated old map, nmatch, est_ok (neither
 nan_fail nor fewer than GlobalMatchThreshold matches) and R0.
 `md_depth` is `depth_filter.regularize_1_iter` and `depth_ekf` on a
 map, then, with `rescale`, `estimate_rescaling_opt`, the apply_res
-divide, the est_ok select and the frame's Kp, Kp_gauge, P_Kp and V_out
-(the mono and VI tail); without, the filtered map alone (the stereo
-tail, whose own blocks follow).
+divide and the est_ok select (the mono and VI tail); without, the
+filtered map alone (the stereo tail, whose own blocks and select
+follow). Both give the frame's Kp, Kp_gauge, P_Kp and V_out (without
+`rescale`: Kp = Kp_gauge = 1 and the previous P_Kp carried).
 
 On CUDA tensors each is one launch of K5 (`md_match_kernel`,
 `md_depth_kernel`, built by `nvcc` at first use), through the custom ops
@@ -67,7 +68,7 @@ DEPTH_FIELDS = ("valid", "n_id", "p_id", "gx", "gy", "n_m", "px", "py", "rho",
                 "s_rho", "rho0", "s_rho0", "m_id", "m_num", "p0x", "p0y",
                 "g0x", "g0y", "n_m0")
 DEPTH_ROWS = ("rho", "s_rho", "rho0", "s_rho0")
-N_SCALARS = 6                    # Kp, Kp_gauge, P_Kp, V_out
+N_SCALARS = 6                    # Kp, Kp_gauge, P_Kp, V_out [3]
 RESCALE_ITERS = 5                # estimate_rescaling_opt's default
 
 _F32, _I32, _BOOL = torch.float32, torch.int32, torch.bool
@@ -89,7 +90,7 @@ class MatchResult(NamedTuple):
 
 class DepthResult(NamedTuple):
     klm: KeylineMap      # rho, s_rho, rho0, s_rho0 filtered (and selected)
-    Kp: Tensor           # with rescale; zeros without
+    Kp: Tensor           # 1 without rescale
     Kp_gauge: Tensor
     P_Kp: Tensor
     V_out: Tensor        # [3]
@@ -115,6 +116,24 @@ def _partial_map(fields, tensors, **extra) -> KeylineMap:
 # ---------------------------------------------------------------------------
 
 
+def match_maps(old: KeylineMap, new: KeylineMap, m_id_f, w, r0, back_rot,
+               nan_fail, matcher, *, zfm: float, gmt: int):
+    """The stage's matching on maps: the forward transfer along m_id_f
+    (None: none), the old map's rotation by so3_exp(w) (back rotation its
+    transpose) or by r0 (back rotation back_rot), then `matcher(new,
+    rotated old, back rotation)`, a directed matcher of kernels/matching.
+    Returns (its result, the rotated old map, R0, est_ok)."""
+    if m_id_f is not None:
+        new, _ = forward_match(old, new, m_id_f)
+    if w is not None:
+        r0 = so3_exp(w)
+        back_rot = r0.T
+    rot = rotate_map(old, r0, zfm)
+    dres = matcher(new, rot, back_rot)
+    est_ok = (~nan_fail) & (~(dres.nmatch < gmt))
+    return dres, rot, r0, est_ok
+
+
 def match_plain(old_t, m_id_f, new_t, field, vel, p_v, w, r0, back_rot,
                 nan_fail, *, zfm: float, cx: float, cy: float, width: int,
                 height: int, max_steps: int, stride: int, min_thr_mod: float,
@@ -126,18 +145,15 @@ def match_plain(old_t, m_id_f, new_t, field, vel, p_v, w, r0, back_rot,
     nmatch and est_ok."""
     old = _partial_map(OLD_FIELDS, old_t)
     new = _partial_map(NEW_FIELDS, new_t, x=new_t[NEW_FIELDS.index("px")])
-    if m_id_f is not None:
-        new, _ = forward_match(old, new, m_id_f)
-    if w is not None:
-        r0 = so3_exp(w)
-        back_rot = r0.T
-    rot = rotate_map(old, r0, zfm)
-    dres = directed_matching_field(
-        new, rot, field, vel, p_v, back_rot, zfm=zfm, cx=cx, cy=cy,
-        width=width, height=height, max_steps=max_steps, stride=stride,
-        min_thr_mod=min_thr_mod, min_thr_ang=min_thr_ang,
-        max_radius=max_radius, loc_uncertainty=loc)
-    est_ok = (~nan_fail) & (~(dres.nmatch < gmt))
+
+    def matcher(new, rot, back_rot):
+        return directed_matching_field(
+            new, rot, field, vel, p_v, back_rot, zfm=zfm, cx=cx, cy=cy,
+            width=width, height=height, max_steps=max_steps, stride=stride,
+            min_thr_mod=min_thr_mod, min_thr_ang=min_thr_ang,
+            max_radius=max_radius, loc_uncertainty=loc)
+    dres, rot, r0, est_ok = match_maps(old, new, m_id_f, w, r0, back_rot,
+                                       nan_fail, matcher, zfm=zfm, gmt=gmt)
     out_f = torch.stack([getattr(dres.new, f) for f in MATCH_ROWS] +
                         [getattr(rot, f) for f in ROTATED_ROWS])
     out_i = torch.stack([getattr(dres.new, f) for f in MATCH_INT_ROWS])
@@ -145,34 +161,39 @@ def match_plain(old_t, m_id_f, new_t, field, vel, p_v, w, r0, back_rot,
             dres.nmatch, est_ok)
 
 
-def depth_plain(map_t, vel, nan_fail, nmatch, frame_count, *, rescale: bool,
-                do_res: bool, imu_boot: bool, brf: int, gmt: int,
-                thresh: float, zfm: float, rq: float, loc: float):
+def depth_plain(map_t, vel, nan_fail, nmatch, frame_count, p_kp, *,
+                rescale: bool, do_res: bool, imu_boot: bool, brf: int,
+                gmt: int, thresh: float, zfm: float, rq: float, loc: float):
     """md_depth's plain version on one lane: the map's DEPTH_FIELDS, Vel,
-    nan_fail, nmatch, frame_count. Returns the rows [DEPTH_ROWS, K] and
-    the scalars [N_SCALARS] (zeros without `rescale`)."""
+    nan_fail, nmatch, frame_count and the previous P_Kp. Returns the rows
+    [DEPTH_ROWS, K] and the scalars [N_SCALARS]."""
     klm = _partial_map(DEPTH_FIELDS, map_t)
     proc, _ = regularize_1_iter(klm, thresh)
     proc = depth_ekf(proc, vel, zfm, reshape_q_abs=rq, loc_uncertainty=loc)
-    if not rescale:
-        return (torch.stack([getattr(proc, f) for f in DEPTH_ROWS]),
-                torch.zeros(N_SCALARS, dtype=vel.dtype, device=vel.device))
     one = torch.ones((), dtype=vel.dtype, device=vel.device)
     match_fail = nmatch < gmt
     est_ok = (~nan_fail) & (~match_fail)
-    proc, Kp_new, P_Kp_new = estimate_rescaling_opt(proc, apply=False)
-    apply_res = torch.full((), bool(do_res), dtype=torch.bool,
-                           device=vel.device)
-    if imu_boot:
-        boot = frame_count <= brf
-        moving = torch.abs(Kp_new - 1.0) > 0.05
-        apply_res = apply_res | (boot & moving & est_ok)
-    div = torch.where(apply_res, Kp_new, one)
-    proc = proc._replace(rho=proc.rho / div, s_rho=proc.s_rho / div)
-    rows = torch.stack([torch.where(est_ok, getattr(proc, f), getattr(klm, f))
-                        for f in DEPTH_ROWS])
-    Kp = torch.where(est_ok, Kp_new, one)
-    Kp_gauge = torch.where(apply_res, one, Kp)
+    if rescale:
+        proc, Kp_new, P_Kp_new = estimate_rescaling_opt(proc, apply=False)
+        apply_res = torch.full((), bool(do_res), dtype=torch.bool,
+                               device=vel.device)
+        if imu_boot:
+            boot = frame_count <= brf
+            moving = torch.abs(Kp_new - 1.0) > 0.05
+            apply_res = apply_res | (boot & moving & est_ok)
+        div = torch.where(apply_res, Kp_new, one)
+        proc = proc._replace(rho=proc.rho / div, s_rho=proc.s_rho / div)
+        rows = torch.stack([torch.where(est_ok, getattr(proc, f),
+                                        getattr(klm, f))
+                            for f in DEPTH_ROWS])
+        Kp = torch.where(est_ok, Kp_new, one)
+        Kp_gauge = torch.where(apply_res, one, Kp)
+    else:
+        # the stereo tail selects after its own blocks; its scale is the
+        # pair's
+        rows = torch.stack([getattr(proc, f) for f in DEPTH_ROWS])
+        Kp = Kp_gauge = one
+        P_Kp_new = p_kp
     P_Kp = torch.where(nan_fail, torch.full_like(P_Kp_new, BIG),
                        torch.where(match_fail,
                                    torch.full_like(P_Kp_new, 10.0), P_Kp_new))
@@ -289,7 +310,7 @@ def match_launch(launch: Callable[..., int], old_t, m_id_f, new_t, field,
 
 
 def depth_launch(launch: Callable[..., int], map_t, vel, nan_fail, nmatch,
-                 frame_count, stream, *, rescale: bool, do_res: bool,
+                 frame_count, p_kp, stream, *, rescale: bool, do_res: bool,
                  imu_boot: bool, brf: int, gmt: int, thresh: float,
                  zfm: float, rq: float, loc: float):
     """md_depth through its C entry point `launch` (DEPTH_ARGTYPES) on the
@@ -304,7 +325,8 @@ def depth_launch(launch: Callable[..., int], map_t, vel, nan_fail, nmatch,
     named = ([(f, t, _dtype(f), (K,)) for f, t in zip(DEPTH_FIELDS, map_t)] +
              [("Vel", vel, _F32, (3,)), ("nan_fail", nan_fail, _BOOL, ()),
               ("nmatch", nmatch, _I32, ()),
-              ("frame_count", frame_count, _I32, ())])
+              ("frame_count", frame_count, _I32, ()),
+              ("P_Kp", p_kp, _F32, ())])
     ptrs = _check(who, named, lanes, dev)
     L = math.prod(lanes)
     out_f = torch.empty((len(DEPTH_ROWS),) + lanes + (K,), dtype=_F32,
@@ -424,14 +446,14 @@ torch.library.register_vmap("rebvo_tpu_torch::md_match", _match_vmap)
 
 @torch.library.custom_op("rebvo_tpu_torch::md_depth", mutates_args=())
 def _depth_op(klm: List[Tensor], vel: Tensor, nan_fail: Tensor,
-              nmatch: Tensor, frame_count: Tensor, rescale: bool,
+              nmatch: Tensor, frame_count: Tensor, p_kp: Tensor, rescale: bool,
               do_res: bool, imu_boot: bool, brf: int, gmt: int,
               thresh: float, zfm: float, rq: float, loc: float
               ) -> Tuple[Tensor, Tensor]:
     """md_depth on the CUDA device, its plain version on the CPU."""
     kw = dict(rescale=rescale, do_res=do_res, imu_boot=imu_boot, brf=brf,
               gmt=gmt, thresh=thresh, zfm=zfm, rq=rq, loc=loc)
-    args = (klm, vel, nan_fail, nmatch, frame_count)
+    args = (klm, vel, nan_fail, nmatch, frame_count, p_kp)
     if vel.device.type == "cpu":
         lanes = tuple(vel.shape[:-1])
         plain = functools.partial(depth_plain, **kw)
@@ -458,8 +480,8 @@ def _depth_vmap(info, in_dims, *args):
     """vmap rule of md_depth: every lane in one call; the rows come back
     lanes second."""
     B = info.batch_size
-    ts = [_batched(a, d, B) for a, d in zip(args[:5], in_dims[:5])]
-    return _depth_op(*ts, *args[5:]), (1, 0)
+    ts = [_batched(a, d, B) for a, d in zip(args[:6], in_dims[:6])]
+    return _depth_op(*ts, *args[6:]), (1, 0)
 
 
 torch.library.register_vmap("rebvo_tpu_torch::md_depth", _depth_vmap)
@@ -516,13 +538,13 @@ md_match.launches = 0
 
 
 def depth_args(klm: KeylineMap, V: Tensor, nan_fail: Tensor,
-               nmatch: Tensor, frame_count: Tensor, *, cam, params,
-               rescale: bool):
+               nmatch: Tensor, frame_count: Tensor, P_Kp: Tensor, *, cam,
+               params, rescale: bool):
     """md_depth's op inputs: the tensors (depth_plain's positional
     arguments) and the keywords."""
     p = params
     ts = ([getattr(klm, f) for f in DEPTH_FIELDS], V, nan_fail, nmatch,
-          frame_count)
+          frame_count, P_Kp)
     kw = dict(rescale=bool(rescale), do_res=bool(p.DoReScaling),
               imu_boot=bool(p.ImuMode > 0 and p.BootstrapRescaleFrames > 0),
               brf=int(p.BootstrapRescaleFrames),
@@ -533,14 +555,14 @@ def depth_args(klm: KeylineMap, V: Tensor, nan_fail: Tensor,
 
 
 def md_depth(klm: KeylineMap, V: Tensor, nan_fail: Tensor, nmatch: Tensor,
-             frame_count: Tensor, *, cam, params, rescale: bool
-             ) -> DepthResult:
+             frame_count: Tensor, P_Kp: Tensor, *, cam, params,
+             rescale: bool) -> DepthResult:
     """regularize_1_iter and depth_ekf of the matched map, then, with
-    `rescale`, the rescaling, the est_ok select and the tail's scalars:
-    on CUDA tensors one launch of md_depth, on CPU tensors its plain
-    version."""
-    ts, kw = depth_args(klm, V, nan_fail, nmatch, frame_count, cam=cam,
-                        params=params, rescale=rescale)
+    `rescale`, the rescaling and the est_ok select; the tail's scalars
+    (P_Kp: the previous frame's): on CUDA tensors one launch of
+    md_depth, on CPU tensors its plain version."""
+    ts, kw = depth_args(klm, V, nan_fail, nmatch, frame_count, P_Kp,
+                        cam=cam, params=params, rescale=rescale)
     rows, s = _depth_op(*ts, **kw)
     klm = klm._replace(**dict(zip(DEPTH_ROWS, rows.unbind(0))))
     return DepthResult(klm, s[..., 0], s[..., 1], s[..., 2], s[..., 3:6])

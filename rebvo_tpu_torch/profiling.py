@@ -127,7 +127,8 @@ def stage_breakdown(fe, state, frame, n: int = 20) -> Dict[str, float]:
                      W=torch.zeros(3, device=dev))
     out["matching"] = dt * 1e3
     dt, _ = _timeit(dev, n, md_depth, mt.new, V, ok, mt.nmatch,
-                    state.frame_count, cam=cam, params=p, rescale=True)
+                    state.frame_count, state.P_Kp, cam=cam, params=p,
+                    rescale=True)
     out["depth_filter"] = dt * 1e3
 
     dt, _ = _timeit(dev, n, fe.step, state, frame, 1.0)

@@ -59,10 +59,11 @@ SMALL_P = dict(ImageWidth=188, ImageHeight=120, ZfX=100.0, ZfY=100.0,
 # valid slot in either map
 MATCH_CASES = ("mono", "ties", "vi", "still", "nan_fail", "qz", "empty")
 # a recorded mono call; the VI step's apply_res branch (ImuMode > 0, a
-# bootstrap frame, Kp far from 1); the stereo split (no rescaling);
-# nan_fail and too few matches (the select keeps the matched map); no
-# valid slot
-DEPTH_CASES = ("mono", "vi", "stereo", "nan_fail", "match_fail", "empty")
+# bootstrap frame, Kp far from 1); the stereo split (no rescaling, the
+# previous P_Kp carried), and with too few matches; nan_fail and too few
+# matches (the select keeps the matched map); no valid slot
+DEPTH_CASES = ("mono", "vi", "stereo", "stereo_fail", "nan_fail",
+               "match_fail", "empty")
 # the lane axis of each output: the rows are field-major
 MATCH_DIMS = (1, 1, 0, 0, 0)
 DEPTH_DIMS = (1, 0)
@@ -150,12 +151,24 @@ def match_case(name, call):
     return (old, m_id_f, new, field, vel, p_v, w, r0, br, nan_fail), kw
 
 
+def unpoisoned(ts):
+    """md_match's inputs with no forward match into a target that a valid
+    NaN-rho source aims at: what the CPU's plain scatter, and the
+    kernel, make of the NaN (that target gets no winner)."""
+    old, m_id_f = ts[0], ts[1].clone()
+    OI = mdk.OLD_FIELDS.index
+    src = old[OI("valid")] & (m_id_f >= 0)
+    bad = m_id_f[src & torch.isnan(old[OI("rho")])]
+    m_id_f[src & torch.isin(m_id_f, bad)] = -1
+    return (old, m_id_f) + tuple(ts[2:])
+
+
 def depth_case(name, call):
     """md_depth's (tensors, keywords) of a case, from a recorded call."""
     ts, kw = call
     ts = _clone(ts)
     kw = dict(kw)
-    klm, vel, nan_fail, nmatch, frame_count = ts
+    klm, vel, nan_fail, nmatch, frame_count, p_kp = ts
     DI = mdk.DEPTH_FIELDS.index
     if name == "vi":
         kw.update(imu_boot=True, brf=20)
@@ -163,15 +176,18 @@ def depth_case(name, call):
         # a map too near by half: the EKF's update moves rho off its
         # prediction, Kp off 1
         klm[DI("rho")] = klm[DI("rho")] * 1.5
-    elif name == "stereo":
+    elif name in ("stereo", "stereo_fail"):
         kw.update(rescale=False)
+        p_kp = torch.full_like(p_kp, 0.375)
+        if name == "stereo_fail":
+            nmatch = torch.full_like(nmatch, kw["gmt"] - 1)
     elif name == "nan_fail":
         nan_fail = torch.ones_like(nan_fail)
     elif name == "match_fail":
         nmatch = torch.full_like(nmatch, kw["gmt"] - 1)
     elif name == "empty":
         klm[DI("valid")] = torch.zeros_like(klm[DI("valid")])
-    return (klm, vel, nan_fail, nmatch, frame_count), kw
+    return (klm, vel, nan_fail, nmatch, frame_count, p_kp), kw
 
 
 def _vmapped(fn, stacked, kw):
@@ -257,6 +273,20 @@ def test_md_match_matches_plain(ieee, recorded, name):
 
 
 @host
+def test_nan_rho_leaves_its_target_without_a_winner(ieee, recorded):
+    """A valid old keyline with a NaN rho, forward-matched: its target
+    takes no transfer from any source, in the plain version on the CPU
+    and in the kernel, as if no source aimed at it (the card's plain
+    scatter may differ there, test_kernels_match_plain_on_the_card)."""
+    ts, kw = match_case("ties", recorded[-1][0])
+    clean = unpoisoned(ts)
+    assert int((clean[1] != ts[1]).sum()) == 4       # the NaN's group
+    ref = mdk.match_plain(*clean, **kw)
+    _equal(mdk.match_plain(*ts, **kw), ref)
+    _equal(tile_host.md_match(*ts, **kw), ref)
+
+
+@host
 @pytest.mark.parametrize("name", DEPTH_CASES)
 def test_md_depth_matches_plain(ieee, recorded, name):
     ts, kw = depth_case(name, recorded[-1][1])
@@ -276,8 +306,13 @@ def test_md_depth_matches_plain(ieee, recorded, name):
         assert float(s[0]) == 1.0 and float(s[3:].abs().max()) == 0.0
     elif name == "empty":
         assert same and float(s[0]) == 1.0
-    elif name == "stereo":
-        assert not same and float(s.abs().max()) == 0.0
+    elif name.startswith("stereo"):
+        # the filtered map unselected; Kp = 1 and the previous P_Kp, or
+        # 10 and no velocity on a failed match
+        ok = name == "stereo"
+        assert not same and float(s[0]) == float(s[1]) == 1.0
+        assert float(s[2]) == (0.375 if ok else 10.0)
+        assert torch.equal(s[3:], ts[1] if ok else torch.zeros_like(ts[1]))
     else:
         assert not same
     if name == "vi":                   # apply_res: the map divided by Kp
@@ -367,7 +402,9 @@ def test_launch_refusals(recorded):
         tile_host.md_depth(klm, *dts[1:], **dkw)
     with pytest.raises(ValueError, match="nmatch has shape"):
         tile_host.md_depth(dts[0], dts[1], dts[2], dts[3][None], dts[4],
-                           **dkw)
+                           dts[5], **dkw)
+    with pytest.raises(TypeError, match="P_Kp"):
+        tile_host.md_depth(*dts[:5], dts[5].double(), **dkw)
     with pytest.raises(ValueError, match="takes 19 map fields"):
         tile_host.md_depth(dts[0][:-1], *dts[1:], **dkw)
 
@@ -416,12 +453,11 @@ def test_kernels_match_plain_on_the_card(card, card_calls):
         _equal(mdk._match_op(*mts, **mkw), mdk.match_plain(*mts, **mkw))
         _equal(mdk._depth_op(*dts, **dkw), mdk.depth_plain(*dts, **dkw))
     for name in MATCH_CASES:
-        if name == "ties":     # the card's plain scatter takes a NaN in turn
-            ts, kw = match_case(name, calls[-1][0])
-            ts[0][mdk.OLD_FIELDS.index("rho")].nan_to_num_(nan=0.5)
-        else:
-            ts, kw = match_case(name, calls[-1][0])
-        _equal(mdk._match_op(*ts, **kw), mdk.match_plain(*ts, **kw))
+        ts, kw = match_case(name, calls[-1][0])
+        # the NaN-rho source's target: the kernel keeps the CPU's rule (no
+        # winner), which the card's plain scatter need not
+        ref = unpoisoned(ts) if name == "ties" else ts
+        _equal(mdk._match_op(*ts, **kw), mdk.match_plain(*ref, **kw))
     for name in DEPTH_CASES:
         ts, kw = depth_case(name, calls[-1][1])
         _equal(mdk._depth_op(*ts, **kw), mdk.depth_plain(*ts, **kw))

@@ -228,6 +228,50 @@ def test_stereo_vio_steps_match_jax(runs):
                                        rtol=0)
 
 
+def test_stereo_vio_turning_steps_match_jax(runs):
+    """step_imu with the pair and a turning gyro (0.3 rad/s about y,
+    ImuMode=2, InitBiasFrameNum=2) for 3 frames. Before the bias is
+    initialised the frame's back rotation is the IMU's, not the
+    filter's correction alone, and the scale anchor (aR, aV) composes
+    it: aR within 1e-5 of JAX's on every frame (the IMU turns it by
+    0.015 a frame), aV and Pos within 1e-3 (the VI filter's float32
+    noise), kl_num equal on both cameras."""
+    p = stereo_params(ImuMode=2, InitBiasFrameNum=2)
+    f0, f1 = runs["f0"], runs["f1"]
+    win = JWindow(gyro=jnp.tile(jnp.asarray([0.0, 0.3, 0.0]), (8, 1)),
+                  accel=jnp.tile(jnp.asarray([0.0, -9.8, 0.0]), (8, 1)),
+                  count=jnp.asarray(8, jnp.int32),
+                  tsample=jnp.asarray(1.0 / 160.0, jnp.float32))
+    twin = imu_window_from_numpy(jax.tree_util.tree_map(np.asarray, win),
+                                 device="cpu")
+    fe = _jax_frontend(p)
+    tfe = TorchFrontend(params_from_jax(p), device="cpu")
+    turned = 0.0
+    with pltpu.force_tpu_interpret_mode():
+        js = fe.bootstrap(fe.init(), jnp.asarray(f0[0]), jnp.asarray(0.0),
+                          jnp.asarray(f1[0]))
+        ts = tfe.bootstrap(tfe.init(), f0[0], 0.0, f1[0])
+        for i in range(1, 4):
+            js, jo = fe.step_imu(js, jnp.asarray(f0[i]),
+                                 jnp.asarray(i / 20.0), win,
+                                 frame_pair=jnp.asarray(f1[i]))
+            ts, to = tfe.step_imu_donated(ts, f0[i], i / 20.0, twin,
+                                          frame_pair=f1[i])
+            assert int(jo.nav.kl_num) == int(to.nav.kl_num)
+            assert int(js.last_kl_num_pair) == int(ts.last_kl_num_pair)
+            jaR, jaV = np.asarray(js.aR), np.asarray(js.aV)
+            turned = max(turned, float(np.abs(jaR - np.eye(3)).max()))
+            np.testing.assert_allclose(ts.aR.numpy(), jaR, atol=1e-5,
+                                       rtol=0, err_msg=str(i))
+            np.testing.assert_allclose(ts.aV.numpy(), jaV, atol=SEQ_POS,
+                                       rtol=0, err_msg=str(i))
+            np.testing.assert_allclose(to.nav.Pos.numpy(),
+                                       np.asarray(jo.nav.Pos), atol=SEQ_POS,
+                                       rtol=0)
+    # the anchor carries the IMU's turn (0.015 rad a frame)
+    assert turned > 1e-2, turned
+
+
 def test_mono_frontend_refuses_a_pair(runs):
     """StereoAvaiable=0: every entry point that takes frame_pair raises
     when given one, rather than dropping it."""
